@@ -1,0 +1,382 @@
+"""The bundle-adjustment kernels: CUDA on the card, plain PyTorch on the CPU.
+
+Four kernel families carry ``solvers.ba.ba_solve``; each replaces a Pallas
+TPU kernel of ``ccm_slam_tpu/ops/pallas_kernels.py``:
+
+  reproj_cost    <- fused_reproj_cost     Huber reprojection cost (scalar)
+  normal_blocks  <- fused_normal_blocks   U, V, W, g_c, g_p and the cost
+  schur_ops      <- make_schur_ops        (off, rhs, wtv) Schur operators
+  cam_broadcast  <- cam_broadcast         camera rows -> observation rows
+
+The kernels are hand-written CUDA C++ (``csrc/ba_kernels.cu``, built by
+``_build`` on first use, bound with ctypes).  Beside each wrapper sits its
+plain version (``*_plain``), the same function in PyTorch, mirroring the
+reference's XLA form.  A wrapper takes the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises.
+
+The interface is unpacked: W is [P,K,6,3]; U, V, g_c, g_p and the cost are
+plain tensors.  Camera sums on the card go through a ``CamCSR`` (observations
+stably sorted by camera), built once per solve with ``cam_csr``.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain calls do not count),
+so a run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..solvers import reproj
+from . import _build
+
+LAUNCHES = {
+    "reproj_cost": 0,
+    "normal_blocks": 0,
+    "schur_off": 0,
+    "schur_rhs": 0,
+    "schur_wtv": 0,
+    "cam_broadcast": 0,
+}
+
+_THREADS = 256  # per-landmark block size in csrc/ba_kernels.cu
+_ROW_F = 42     # per-observation U (36) + g_c (6) row
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ccm_reproj_cost": [_P] * 9 + [_I, _I, _I, _F] + [_P] * 3,
+    "ccm_normal_blocks": [_P] * 10 + [_I, _I, _I, _F] + [_P] * 10,
+    "ccm_schur_off": [_P] * 6 + [_I, _I, _I] + [_P] * 3,
+    "ccm_schur_rhs": [_P] * 4 + [_I, _I, _I] + [_P] * 3,
+    "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
+    "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
+}
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("ba_kernels")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ccm_error_string.argtypes = [ctypes.c_int]
+        lib.ccm_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.ccm_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def _ptr(x: torch.Tensor) -> int:
+    return x.data_ptr()
+
+
+def _on_card(device: torch.device) -> bool:
+    """False for the CPU (plain version); True for CUDA; raises otherwise."""
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {device}")
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_problem(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr):
+    """Validate the observation tables; returns (C, P, K, device)."""
+    dev = R.device
+    C = R.shape[0]
+    if cam_idx.dim() != 2:
+        raise ValueError(f"cam_idx: expected [P,K], got {tuple(cam_idx.shape)}")
+    P, K = cam_idx.shape
+    f32 = torch.float32
+    _check("R", R, f32, (C, 3, 3), dev)
+    _check("t", t, f32, (C, 3), dev)
+    _check("X", X, f32, (P, 3), dev)
+    _check("point_valid", point_valid, torch.bool, (P,), dev)
+    _check("cam_idx", cam_idx, torch.int32, (P, K), dev)
+    _check("uv", uv, f32, (P, K, 2), dev)
+    _check("sigma2", sigma2, f32, (P, K), dev)
+    _check("obs_valid", obs_valid, torch.bool, (P, K), dev)
+    _check("intr", intr, f32, (4,), dev)
+    if C == 0:
+        raise ValueError("R: need at least one camera")
+    return C, P, K, dev
+
+
+# ---------------------------------------------------------------------------
+# Camera CSR: observations grouped by camera, once per solve.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CamCSR:
+    """Observations stably sorted by (clipped) camera index.
+
+    cam_idx is constant across LM and CG iterations, so this is built once
+    per solve.  The kernels write each observation's camera-side row into
+    its sorted slot ``pos[e]``; camera c owns slots
+    ``offsets[c]:offsets[c+1]``, which one segment kernel sums in order.
+    """
+
+    C: int
+    ci: torch.Tensor       # [P,K] int32, cam_idx clipped to [0, C)
+    pos: torch.Tensor      # [P*K] int32
+    offsets: torch.Tensor  # [C+1] int32
+
+
+def cam_csr(cam_idx: torch.Tensor, C: int) -> CamCSR:
+    ci = cam_idx.clamp(0, C - 1).to(torch.int32).contiguous()
+    flat = ci.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(flat.numel(), device=flat.device)
+    offsets = torch.zeros(C + 1, dtype=torch.int64, device=flat.device)
+    offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=C), 0)
+    return CamCSR(C=C, ci=ci, pos=pos.to(torch.int32), offsets=offsets.to(torch.int32))
+
+
+def _check_csr(csr: CamCSR, C: int, P: int, K: int, device) -> None:
+    if csr.C != C:
+        raise ValueError(f"csr built for C={csr.C}, problem has C={C}")
+    _check("csr.ci", csr.ci, torch.int32, (P, K), device)
+    _check("csr.pos", csr.pos, torch.int32, (P * K,), device)
+    _check("csr.offsets", csr.offsets, torch.int32, (C + 1,), device)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the reference's XLA forms, in PyTorch).
+# ---------------------------------------------------------------------------
+
+
+def reproj_cost_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr,
+                      huber_delta):
+    """Plain ``reproj_cost`` (the reference's ``ba._cost``)."""
+    ci = cam_idx.clamp(0, R.shape[0] - 1).long()
+    _, _, _, chi2, _ = reproj.obs_residuals(
+        R[ci], t[ci], X, point_valid, uv, sigma2, obs_valid, intr, huber_delta
+    )
+    return torch.sum(reproj.huber_rho(chi2, huber_delta))
+
+
+def normal_blocks_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, cam_fixed,
+                        intr, huber_delta):
+    """Plain ``normal_blocks`` (the reference's ``ba._build_normal_blocks``
+    with ``trans=None``, plus ``ba._cost``)."""
+    C = R.shape[0]
+    ci = cam_idx.clamp(0, C - 1).long()
+    Rc = R[ci]
+    r, Xc, w, chi2, _ = reproj.obs_residuals(
+        Rc, t[ci], X, point_valid, uv, sigma2, obs_valid, intr, huber_delta
+    )
+    Jc, Jp = reproj.pose_point_jacobians(Rc, Xc, intr[0], intr[1])
+    gate = (w > 0)[..., None, None]
+    # fixed cameras contribute no pose Jacobian but still constrain the point
+    cam_var = (~cam_fixed)[ci][..., None, None].to(r.dtype)
+    Jc = Jc * gate * cam_var
+    Jp = Jp * gate
+    wJc = Jc * w[..., None, None]
+    wJp = Jp * w[..., None, None]
+
+    V = torch.einsum("pkij,pkil->pjl", wJp, Jp)   # [P,3,3]
+    W = torch.einsum("pkij,pkil->pkjl", wJc, Jp)  # [P,K,6,3]
+    g_p = -torch.einsum("pkij,pki->pj", wJp, r)   # [P,3]
+    U_blk = torch.einsum("pkij,pkil->pkjl", wJc, Jc)  # [P,K,6,6]
+    g_blk = -torch.einsum("pkij,pki->pkj", wJc, r)    # [P,K,6]
+    flat = ci.reshape(-1)
+    U = torch.zeros(C, 6, 6, dtype=r.dtype, device=r.device).index_add_(
+        0, flat, U_blk.reshape(-1, 6, 6)
+    )
+    g_c = torch.zeros(C, 6, dtype=r.dtype, device=r.device).index_add_(
+        0, flat, g_blk.reshape(-1, 6)
+    )
+    cost = torch.sum(reproj.huber_rho(chi2, huber_delta))
+    return U, V.contiguous(), W.contiguous(), g_c, g_p.contiguous(), cost
+
+
+def schur_ops_plain(W, Vinv, cam_idx, C: int):
+    """Plain ``schur_ops`` (the reference's ``schur_matvec_reference``,
+    ``schur_rhs_reference`` and ``schur_wtv_reference``)."""
+    ci = cam_idx.clamp(0, C - 1).long()
+    flat = ci.reshape(-1)
+
+    def cam_sum(y3):
+        out = torch.zeros(C, 6, dtype=y3.dtype, device=y3.device)
+        return out.index_add_(0, flat, y3.reshape(-1, 6))
+
+    def off(v):
+        y1 = torch.einsum("pkij,pki->pkj", W, v[ci])
+        y2 = torch.einsum("pij,pj->pi", Vinv, torch.sum(y1, dim=1))
+        return cam_sum(torch.einsum("pkij,pj->pki", W, y2))
+
+    def rhs(q):
+        return cam_sum(torch.einsum("pkij,pj->pki", W, q))
+
+    def wtv(v):
+        return torch.einsum("pkij,pki->pj", W, v[ci])
+
+    return off, rhs, wtv
+
+
+def cam_broadcast_plain(v, ci):
+    """Plain ``cam_broadcast`` (the reference's ``cam_broadcast_reference``)."""
+    C = v.shape[0]
+    ok = (ci >= 0) & (ci < C)
+    return torch.where(ok[:, None], v[ci.clamp(0, C - 1).long()], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: kernel on the card, plain version on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _n_blocks(n: int) -> int:
+    return max(1, -(-n // _THREADS))
+
+
+def reproj_cost(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr,
+                huber_delta: float):
+    """Huber reprojection cost of the state (0-d float32 tensor).
+
+    Observations with an invalid flag, an invalid point or depth <= 1e-6
+    contribute 0; cam_idx is clipped to [0, C)."""
+    C, P, K, dev = _check_problem(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr)
+    if not _on_card(dev):
+        return reproj_cost_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid,
+                                 intr, huber_delta)
+    partials = torch.empty(_n_blocks(P), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    _launch("ccm_reproj_cost", dev, _ptr(R), _ptr(t), _ptr(X), _ptr(point_valid),
+            _ptr(cam_idx), _ptr(uv), _ptr(sigma2), _ptr(obs_valid), _ptr(intr),
+            C, P, K, float(huber_delta), _ptr(partials), _ptr(cost))
+    LAUNCHES["reproj_cost"] += 1
+    return cost
+
+
+def normal_blocks(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, cam_fixed, intr,
+                  huber_delta: float, csr: CamCSR):
+    """Normal-equation blocks of the state in one pass over the observations.
+
+    Returns (U [C,6,6], V [P,3,3], W [P,K,6,3], g_c [C,6], g_p [P,3], cost):
+    U = sum_cam w Jc^T Jc, g_c = -sum_cam w Jc^T r, V = sum_k w Jp^T Jp,
+    g_p = -sum_k w Jp^T r, W = w Jc^T Jp per observation (Huber IRLS w; pose
+    Jacobians zero for fixed cameras), and the Huber cost."""
+    C, P, K, dev = _check_problem(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr)
+    _check("cam_fixed", cam_fixed, torch.bool, (C,), dev)
+    _check_csr(csr, C, P, K, dev)
+    if not _on_card(dev):
+        return normal_blocks_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid,
+                                   cam_fixed, intr, huber_delta)
+    f32 = dict(dtype=torch.float32, device=dev)
+    W = torch.empty(P, K, 6, 3, **f32)
+    V = torch.empty(P, 3, 3, **f32)
+    g_p = torch.empty(P, 3, **f32)
+    UG = torch.empty(C, _ROW_F, **f32)
+    rows = torch.empty(P * K, _ROW_F, **f32)
+    partials = torch.empty(_n_blocks(P), **f32)
+    cost = torch.empty((), **f32)
+    _launch("ccm_normal_blocks", dev, _ptr(R), _ptr(t), _ptr(X), _ptr(point_valid),
+            _ptr(cam_idx), _ptr(uv), _ptr(sigma2), _ptr(obs_valid), _ptr(cam_fixed),
+            _ptr(intr), C, P, K, float(huber_delta), _ptr(csr.pos), _ptr(csr.offsets),
+            _ptr(W), _ptr(V), _ptr(g_p), _ptr(UG), _ptr(rows), _ptr(partials), _ptr(cost))
+    LAUNCHES["normal_blocks"] += 1
+    return UG[:, :36].reshape(C, 6, 6), V, W, UG[:, 36:], g_p, cost
+
+
+def schur_ops(W, Vinv, csr: CamCSR):
+    """The three Schur-stage operators over W [P,K,6,3]:
+
+      off(v [C,6]) -> [C,6]  sum_e W_e Vinv_p sum_{e' in p} W_e'^T v[ci_e']
+      rhs(q [P,3]) -> [C,6]  camera sums of W_e q_p
+      wtv(v [C,6]) -> [P,3]  landmark sums of W_e^T v[ci_e]
+
+    with ci = csr.ci (cam_idx clipped to [0, C))."""
+    dev = W.device
+    C = csr.C
+    if W.dim() != 4:
+        raise ValueError(f"W: expected [P,K,6,3], got {tuple(W.shape)}")
+    P, K = W.shape[:2]
+    _check("W", W, torch.float32, (P, K, 6, 3), dev)
+    _check("Vinv", Vinv, torch.float32, (P, 3, 3), dev)
+    _check_csr(csr, C, P, K, dev)
+    if not _on_card(dev):
+        return schur_ops_plain(W, Vinv, csr.ci, C)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def off(v):
+        _check("v", v, torch.float32, (C, 6), dev)
+        rows = torch.empty(P * K, 6, **f32)
+        out = torch.empty(C, 6, **f32)
+        _launch("ccm_schur_off", dev, _ptr(v), _ptr(W), _ptr(Vinv), _ptr(csr.ci),
+                _ptr(csr.pos), _ptr(csr.offsets), C, P, K, _ptr(rows), _ptr(out))
+        LAUNCHES["schur_off"] += 1
+        return out
+
+    def rhs(q):
+        _check("q", q, torch.float32, (P, 3), dev)
+        rows = torch.empty(P * K, 6, **f32)
+        out = torch.empty(C, 6, **f32)
+        _launch("ccm_schur_rhs", dev, _ptr(q), _ptr(W), _ptr(csr.pos), _ptr(csr.offsets),
+                C, P, K, _ptr(rows), _ptr(out))
+        LAUNCHES["schur_rhs"] += 1
+        return out
+
+    def wtv(v):
+        _check("v", v, torch.float32, (C, 6), dev)
+        out = torch.empty(P, 3, **f32)
+        _launch("ccm_schur_wtv", dev, _ptr(v), _ptr(W), _ptr(csr.ci), C, P, K, _ptr(out))
+        LAUNCHES["schur_wtv"] += 1
+        return out
+
+    return off, rhs, wtv
+
+
+def cam_broadcast(v, ci):
+    """Camera rows to observation rows: out[e] = v[ci[e]], zeros where ci is
+    outside [0, C).  v [C,F] float32, ci [E] int32 -> [E,F]."""
+    dev = v.device
+    if v.dim() != 2 or ci.dim() != 1:
+        raise ValueError(f"expected v [C,F] and ci [E], got {tuple(v.shape)}, {tuple(ci.shape)}")
+    C, F = v.shape
+    E = ci.shape[0]
+    _check("v", v, torch.float32, (C, F), dev)
+    _check("ci", ci, torch.int32, (E,), dev)
+    if not _on_card(dev):
+        return cam_broadcast_plain(v, ci)
+    out = torch.empty(E, F, dtype=torch.float32, device=dev)
+    _launch("ccm_cam_broadcast", dev, _ptr(v), _ptr(ci), C, F, E, _ptr(out))
+    LAUNCHES["cam_broadcast"] += 1
+    return out

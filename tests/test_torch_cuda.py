@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips (inside the test) when no card is present.
+On a machine with one:  python -m pytest tests/test_torch_cuda.py -q -n 0
+"""
+
+import pytest
+import torch
+
+from ccm_slam_tpu_torch import convert, problems
+from ccm_slam_tpu_torch.ops import ba_kernels as bk
+from ccm_slam_tpu_torch.solvers import ba
+
+pytestmark = pytest.mark.cuda
+
+DELTA = 2.447651936
+
+
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+def args(prob):
+    return (prob.R, prob.t, prob.X, prob.point_valid, prob.cam_idx, prob.uv,
+            prob.sigma2, prob.obs_valid)
+
+
+def close(ours, ref, rtol, atol_scale):
+    """Sums are taken in another order on the card (CSR segments and tree
+    sums): tolerance scaled by the largest entry."""
+    ref = ref.detach().cpu()
+    atol = atol_scale * float(ref.abs().max()) + 1e-6
+    torch.testing.assert_close(ours.detach().cpu(), ref, rtol=rtol, atol=atol)
+
+
+def problem(name, dev):
+    if name == "bench":
+        return problems.make_problem(C=128, P=4096, K=8, device=dev)
+    return convert.ba_problem_from_numpy(problems.ragged_problem_arrays(), dev)
+
+
+@pytest.mark.parametrize("name", ["bench", "ragged"])
+def test_reproj_cost_kernel(name):
+    prob = problem(name, card())
+    ours = bk.reproj_cost(*args(prob), prob.intr, DELTA)
+    ref = bk.reproj_cost_plain(*args(prob), prob.intr, DELTA)
+    assert abs(float(ours) - float(ref)) < 1e-4 * abs(float(ref)) + 1e-2
+
+
+@pytest.mark.parametrize("name", ["bench", "ragged"])
+def test_normal_blocks_kernel(name):
+    prob = problem(name, card())
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    ours = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    ref = bk.normal_blocks_plain(*args(prob), prob.cam_fixed, prob.intr, DELTA)
+    for a, b in zip(ours[:5], ref[:5]):
+        close(a, b, 5e-3, 1e-5)
+    assert abs(float(ours[5]) - float(ref[5])) < 1e-4 * abs(float(ref[5])) + 1e-2
+
+
+@pytest.mark.parametrize("name", ["bench", "ragged"])
+def test_schur_ops_kernels(name):
+    dev = card()
+    prob = problem(name, dev)
+    C, (P, _) = prob.R.shape[0], prob.cam_idx.shape
+    csr = bk.cam_csr(prob.cam_idx, C)
+    _, V, W, _, _, _ = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    Vinv = ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=dev))).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    v = torch.randn(C, 6, generator=g).to(dev)
+    q = torch.randn(P, 3, generator=g).to(dev)
+    for fk, fp, x in zip(bk.schur_ops(W, Vinv, csr),
+                         bk.schur_ops_plain(W, Vinv, prob.cam_idx, C), (v, q, v)):
+        close(fk(x), fp(x), 1e-4, 1e-4)
+
+
+def test_cam_broadcast_kernel():
+    dev = card()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    v = torch.randn(37, 12, generator=g).to(dev)
+    ci = torch.randint(-3, 40, (9999,), generator=g, dtype=torch.int32).to(dev)
+    torch.testing.assert_close(bk.cam_broadcast(v, ci), bk.cam_broadcast_plain(v, ci),
+                               rtol=0, atol=0)
+
+
+def test_kernels_are_repeatable():
+    """No float atomics: the same inputs give bit-identical outputs."""
+    prob = problem("bench", card())
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    a = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    b = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("branch", ["dense", "pcg"])
+def test_ba_solve_on_card_matches_cpu(branch):
+    card()
+    arr = (problems.small_ba_problem_arrays() if branch == "dense"
+           else problems.arc_problem_arrays(C=100, P=1024, K=4))
+    bk.reset_launch_counts()
+    ours = ba.ba_solve(convert.ba_problem_from_numpy(arr), iters=20)
+    counts = bk.launch_counts()
+    ref = ba.ba_solve(convert.ba_problem_from_numpy(arr, "cpu"), iters=20)
+    assert abs(float(ours[3]) - float(ref[3])) <= 0.05 * float(ref[3]) + 1e-3
+    ctr = [-torch.einsum("cji,cj->ci", R.cpu(), t.cpu()) for R, t in (ours[:2], ref[:2])]
+    assert float((ctr[0] - ctr[1]).norm(dim=-1).max()) < 5e-3
+    assert counts["normal_blocks"] == 20 and counts["reproj_cost"] == 21
+    assert counts["cam_broadcast"] == 1
+    if branch == "pcg":
+        assert counts["schur_rhs"] == 20 and counts["schur_off"] >= 20
