@@ -6,8 +6,14 @@ keyed on a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused.  The ``-Xptxas -v`` register and spill
 summary is kept beside the library (``.log``) and returned by ``build_log``.
 
-Only the card's machine can build: this module imports nothing CUDA-specific
-and compiles nothing until a kernel is first launched.
+Every library exports ``int`` C functions that return a CUDA error code
+(0 on success; the stream is the last argument) and ``ccm_error_string``.
+``load`` binds them, ``launch`` calls one on PyTorch's current stream and
+raises on a non-zero code, and ``check_tensor`` / ``on_card`` are the
+wrappers' argument checks.
+
+Only the card's machine can build: this module compiles nothing until a
+kernel is first launched.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -46,22 +54,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
+def build_all(names) -> dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    ``nvcc`` per source, all started together; waits for every one and
+    raises if any failed."""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    out = library_path(name)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[name]
 
 
 def build_log(name: str) -> str:
@@ -70,8 +92,48 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library; cached per process."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load the library, cached per process, with
+    ``signatures`` {C function: argument ctypes} bound (each returns int)."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.ccm_error_string.argtypes = [ctypes.c_int]
+        lib.ccm_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
     return _LOADED[name]
+
+
+def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream; raises when
+    the launch reports a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc} ({lib.ccm_error_string(rc).decode()})")
+
+
+def on_card(device: torch.device) -> bool:
+    """False for the CPU (plain version); True for CUDA; raises otherwise."""
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {device}")
+
+
+def check_tensor(name: str, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous tensor of this dtype, shape and device."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

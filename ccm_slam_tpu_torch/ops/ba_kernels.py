@@ -31,6 +31,7 @@ import torch
 
 from ..solvers import reproj
 from . import _build
+from ._build import check_tensor as _check, on_card as _on_card
 
 LAUNCHES = {
     "reproj_cost": 0,
@@ -53,7 +54,6 @@ _SIGNATURES = {
     "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
     "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
 }
-_LIB: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
@@ -65,54 +65,12 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("ba_kernels")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.ccm_error_string.argtypes = [ctypes.c_int]
-        lib.ccm_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = lib.ccm_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    _build.launch(_build.load("ba_kernels", _SIGNATURES), name, device, *args)
 
 
 def _ptr(x: torch.Tensor) -> int:
     return x.data_ptr()
-
-
-def _on_card(device: torch.device) -> bool:
-    """False for the CPU (plain version); True for CUDA; raises otherwise."""
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"unsupported device {device}")
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _check_problem(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr):

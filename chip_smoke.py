@@ -2,20 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``ccm_slam_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card (at the server-GBA
-shapes and on a ragged case), drives the port's slice -- server-scale global
-BA (PCG branch), local-BA-size BA (dense branch), an interrupted (chunked)
-solve and the pose-only tracking step -- with the launch counts set to 0
-before each path and held to that path's own expected counts after it,
-checks the results, times every kernel, and prints:
+Builds the port's CUDA kernels from ``ccm_slam_tpu_torch/csrc`` (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card, and drives the port's paths through their
+entry points with the launch counts set to 0 before each path and held to
+that path's own expected counts after it:
 
-  * one line per phase;
-  * the card's name and power limit as ``nvidia-smi`` reports them;
-  * on the line before the last, ``{"kernels": [...]}`` with each kernel's
-    launches on the server-GBA solve, error against its plain version,
-    device time, plain time, bound and library yardstick;
-  * last, ``{"ok": true, "device": {...}}``.
+  1. device and build;
+  2. the BA kernels at the server-GBA shapes and on a ragged case;
+  3. server-scale global BA (PCG branch), local-BA-size BA (dense branch),
+     an interrupted (chunked) solve, the pose-only tracking step;
+  4. BA times;
+  5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
+     of the targets invalid, a ragged case, invalid queries, a single valid
+     target -- equal outputs, and bit-identical on a second run;
+  6. the client bootstrap at 752x480: rendered corridor frames (EuRoC
+     intrinsics and radtan) -> ``orb.extract`` -> ``build_frame`` ->
+     ``search_for_initialization`` -> ``initialize_two_view``, gated on the
+     renderer's ground truth, and the same frames through the port on the
+     CPU;
+  7. global relocalization: a later frame's features ``match_brute``-d
+     against a 16384-slot landmark arena (the ``hamming_top2`` kernel), then
+     ``ransac_pnp`` and a pose refine, gated as the tracker gates it;
+  8. front-end times (medians of 5 runs with their spread).
+
+It prints one line per step, the card's name and power limit as
+``nvidia-smi`` reports them, on the line before the last ``{"kernels":
+[...]}`` (each kernel's launches on its path, error against its plain
+version, device time, plain time, bound and library yardstick), and last
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails.  Imports nothing of the JAX package.
@@ -32,15 +47,21 @@ import time
 import numpy as np
 import torch
 
-from ccm_slam_tpu_torch import convert, problems
-from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk
+from ccm_slam_tpu_torch import config, convert, problems
+from ccm_slam_tpu_torch.io.rendered import RenderedSequence
+from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_kernels as hk
+from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
+from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
+from ccm_slam_tpu_torch.utils.camera import Camera
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32, outside the tensor cores
+POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
 HUBER = 2.447651936
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
 SOURCE = "ccm_slam_tpu_torch/csrc/ba_kernels.cu"
+HAMMING_SOURCE = "ccm_slam_tpu_torch/csrc/hamming_kernels.cu"
 PALLAS = "ccm_slam_tpu/ops/pallas_kernels.py"
 # (name, the TPU kernel's pallas_call it replaces, flops per observation)
 KERNELS = [
@@ -55,6 +76,15 @@ KERNELS = [
 # the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix)
 CUDA_KERNELS = ("reproj_cost", "normal_blocks", "seg_sum", "sum_partials", "schur_off",
                 "schur_rhs", "schur_wtv", "cam_broadcast")
+
+# the bootstrap pair and the relocalization frame of
+# RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
+# JAX package's own errors on that pair against ground truth (rotation,
+# translation direction; degrees), from ``python3 tools/jax_init_pair.py``
+INIT_PAIR = (0, 6)
+RELOC_FRAME = 10
+JAX_PAIR_ERR_DEG = (0.1228, 1.4517)
+MIN_ERR_GATE_DEG = (0.5, 5.0)
 
 # Tolerances, kernel against plain version (both fp32 on the card).  Sums
 # are taken in another order (CSR segments and tree sums against index_add_
@@ -308,8 +338,9 @@ def counted(label, fn, want):
     the counts just after and hold them to ``want`` (kernels it does not
     name must stay at 0).  Returns (fn's result, the counts)."""
     bk.reset_launch_counts()
+    hk.reset_launch_counts()
     out = fn()
-    counts = bk.launch_counts()
+    counts = {**bk.launch_counts(), **hk.launch_counts()}
     bad = {}
     for name, n in counts.items():
         w = want.get(name, 0)
@@ -374,6 +405,301 @@ def profile_solve(prob):
                 f"{us / 1e3:.3f} ms in all")
 
 
+# ---------------------------------------------------------------------------
+# The front-end: hamming_top2, the bootstrap and global relocalization.
+# ---------------------------------------------------------------------------
+
+
+def top2_cases(dev):
+    """Phase-5 inputs {name: (q, qv, t, tv)}: the relocalization shape with a
+    quarter of the targets invalid, a ragged case, 30 invalid queries, and a
+    single valid target; each with a duplicated target (a tie)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = {}
+    for name, Q, Tn in (("1024x16384", 1024, 16384), ("ragged 100x300", 100, 300),
+                        ("30 invalid queries", 128, 256), ("one valid target", 64, 500)):
+        q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
+        t = torch.randint(0, 256, (Tn, 32), generator=g, dtype=torch.uint8)
+        t[Tn // 2] = t[Tn // 3]
+        q[0] = t[Tn // 3]
+        qv = torch.ones(Q, dtype=torch.bool)
+        tv = torch.rand(Tn, generator=g) >= 0.25
+        tv[Tn // 3] = tv[Tn // 2] = True
+        if name.startswith("30"):
+            qv[-30:] = False
+        if name.startswith("one"):
+            tv[:] = False
+            tv[Tn - 7] = True
+        cases[name] = tuple(x.to(dev) for x in (q, qv, t, tv))
+    return cases
+
+
+def check_hamming(dev):
+    """hamming_top2 against its plain version on every phase-5 case: equal
+    outputs, and a second run bit-identical.  Returns the max abs error."""
+    err = 0
+    for name, args in top2_cases(dev).items():
+        out = hk.hamming_top2(*args)
+        again = hk.hamming_top2(*args)
+        ref = hk.hamming_top2_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        repeat = all(torch.equal(a, b) for a, b in zip(out, again))
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(out, ref))
+        err = max(err, e)
+        log(f"  hamming_top2 {name:<20} equal to plain {same}, repeatable {repeat}, "
+            f"max abs err {e}  {'ok' if same and repeat else 'FAIL'}")
+        if not (same and repeat):
+            raise AssertionError(f"hamming_top2 {name}: kernel and plain version disagree")
+    return err
+
+
+def rot_err_deg(R, R_gt):
+    c = (float(torch.trace(R.double().cpu() @ R_gt.T)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def dir_err_deg(t, t_gt):
+    t = t.double().cpu()
+    c = float(t @ t_gt) / max(float(t.norm() * t_gt.norm()), 1e-12)
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def relative_gt(seq, i, j):
+    """(R, t) with x_j = R x_i + t from the renderer's camera-to-world poses."""
+    _, o_i, R_i = seq.gt_pose(i)
+    _, o_j, R_j = seq.gt_pose(j)
+    R = torch.as_tensor(R_j.T @ R_i, dtype=torch.float64)
+    t = torch.as_tensor(R_j.T @ (o_i - o_j), dtype=torch.float64)
+    return R, t
+
+
+class FrontEnd:
+    """The client's front-end at EuRoC width on one device: rendered frames
+    in, Frames out (``Tracker.process_image``'s extractor settings)."""
+
+    def __init__(self, seq, images, dev):
+        self.seq, self.images, self.dev = seq, images, dev
+        self.ex, self.cap = config.ExtractorConfig(), config.CapacityConfig()
+        self.cam = Camera.from_config(seq.cam, dev)
+
+    def features(self, i, initializing):
+        ex = self.ex
+        nf = ex.n_features * (ex.init_features_factor if initializing else 1)
+        img = torch.as_tensor(self.images[i], device=self.dev)
+        return orb.extract(
+            img, n_features=min(nf, self.cap.max_keypoints), n_levels=ex.n_levels,
+            scale_factor=ex.scale_factor, ini_th=float(ex.ini_th_fast),
+            min_th=float(ex.min_th_fast), cell=ex.cell_size, capacity=self.cap.max_keypoints)
+
+    def frame(self, feats, i):
+        return build_frame(feats, self.cam, self.seq.gt_pose(i)[0], self.ex.scale_factor)
+
+    def bootstrap(self, generator=None, idx=None):
+        """(features, frames, match idx, match ok, initialize_two_view's dict)."""
+        feats = [self.features(i, True) for i in INIT_PAIR]
+        f1, f2 = (self.frame(f, i) for f, i in zip(feats, INIT_PAIR))
+        m_idx, _, m_ok = matching.search_for_initialization(
+            f1.xy, f1.desc, f1.valid, f1.angle, f1.octave,
+            f2.xy, f2.desc, f2.valid, f2.angle, f2.octave)
+        idx_f, idx_h = idx if idx is not None else (None, None)
+        out = initializer.initialize_two_view(f1.xy, f2.xy[m_idx], m_ok, self.cam.K,
+                                              idx_f=idx_f, idx_h=idx_h, generator=generator)
+        return feats, (f1, f2), m_idx, m_ok, out
+
+
+def compare_features(label, ours, ref):
+    """The card's features against the CPU's, to the ORB parity tolerances:
+    valid/octave/xy equal on >= 99% of slots; descriptors bit-exact on >= 99%
+    of shared keypoints with mean Hamming <= 0.5; angle within 1e-4 rad."""
+    ours = {k: getattr(ours, k).cpu() for k in ("valid", "octave", "xy", "desc", "angle")}
+    same = ((ours["valid"] == ref.valid) & (ours["octave"] == ref.octave)
+            & torch.all(ours["xy"] == ref.xy, dim=1))
+    shared = same & ref.valid
+    d = hamming.hamming_pairwise(ours["desc"], ref.desc)[shared].float()
+    ang = float((ours["angle"] - ref.angle)[shared].abs().max()) if shared.any() else 0.0
+    frac, exact = float(same.float().mean()), float((d == 0).float().mean())
+    mean = float(d.mean())
+    ok = frac >= 0.99 and exact >= 0.99 and mean <= 0.5 and ang <= 1e-4
+    log(f"  {label}: slots equal {frac:.4f} (>= 0.99), descriptors bit-exact {exact:.4f} "
+        f"(>= 0.99), mean Hamming {mean:.4f} (<= 0.5), max angle diff {ang:.2e} (<= 1e-4)"
+        f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU features disagree")
+
+
+def check_bootstrap(seq, images, dev):
+    """Phase 6: the bootstrap on the card, gated on ground truth, then the
+    same frames through the port on the CPU.  Returns the card's run."""
+    fe = FrontEnd(seq, images, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (feats, frames, m_idx, m_ok, out), _ = counted("bootstrap", lambda: fe.bootstrap(gen), {})
+    R_gt, t_gt = relative_gt(seq, *INIT_PAIR)
+    e_rot, e_dir = rot_err_deg(out["R"], R_gt), dir_err_deg(out["t"], t_gt)
+    gate = [max(2.0 * j, m) for j, m in zip(JAX_PAIR_ERR_DEG, MIN_ERR_GATE_DEG)]
+    ok = bool(out["success"]) and e_rot <= gate[0] and e_dir <= gate[1]
+    log(f"  frames {INIT_PAIR}: {int(feats[0].n)} / {int(feats[1].n)} features, "
+        f"{int(m_ok.sum())} matches, success {bool(out['success'])}, used_h "
+        f"{bool(out['used_h'])}, n_good {int(out['n_good'])}; rotation error {e_rot:.4f} deg "
+        f"(<= {gate[0]:.3f}), translation direction error {e_dir:.4f} deg (<= {gate[1]:.3f})"
+        f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bootstrap failed its ground-truth gates")
+
+    cpu = FrontEnd(seq, images, torch.device("cpu"))
+    idx = (initializer.draw_samples(m_ok, 200, 8, gen),
+           initializer.draw_samples(m_ok, 200, 4, gen))
+    card = fe.bootstrap(idx=idx)
+    c_feats, _, _, c_ok, c_out = cpu.bootstrap(idx=tuple(i.cpu() for i in idx))
+    for k, i in enumerate(INIT_PAIR):
+        compare_features(f"frame {i} card vs cpu", card[0][k], c_feats[k])
+    dR = float((card[4]["R"].cpu() - c_out["R"]).abs().max())
+    ok = bool(card[4]["success"]) == bool(c_out["success"]) and dR <= 1e-3
+    log(f"  two-view on card vs cpu (same samples): success {bool(card[4]['success'])} / "
+        f"{bool(c_out['success'])}, matches {int(card[3].sum())} / {int(c_ok.sum())}, "
+        f"max |dR| {dR:.2e} (<= 1e-3)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bootstrap on the card disagrees with the CPU")
+    return fe, frames, m_idx, m_ok, out
+
+
+def landmark_arena(frames, m_idx, out, dev):
+    """A client-map-sized landmark arena (client_max_mps slots): the
+    bootstrap's good landmarks first, with the current frame's descriptors
+    (``tracking.initialize_map``), the rest seeded random descriptors; all
+    valid.  Returns (positions [M,3], descriptors [M,32], valid [M], n_good)."""
+    M = config.CapacityConfig().client_max_mps
+    good = out["good"] & out["success"]
+    n_good = int(good.sum())
+    g = torch.Generator(device="cpu").manual_seed(11)
+    desc = torch.randint(0, 256, (M, 32), generator=g, dtype=torch.uint8).to(dev)
+    pos = torch.zeros(M, 3, dtype=torch.float32, device=dev)
+    desc[:n_good] = frames[1].desc[m_idx[good]]
+    pos[:n_good] = out["X"][good]
+    return pos, desc, torch.ones(M, dtype=torch.bool, device=dev), n_good
+
+
+def relocalize(fe, frame, arena, generator):
+    """``Tracker._pnp_recover``'s steps: brute match against the arena,
+    RANSAC-PnP, pose refine on the inlier associations."""
+    pos, desc, valid, _ = arena
+    t_idx, _, okm = matching.match_brute(frame.desc, frame.valid, desc, valid,
+                                         th_dist=matching.TH_LOW, nn_ratio=0.75,
+                                         check_rotation=False)
+    X = pos[t_idx]
+    cam = fe.cam
+    res = pnp.ransac_pnp(X, frame.xy, okm, frame.sigma2, cam.fx, cam.fy, cam.cx, cam.cy,
+                         generator=generator)
+    R, t, inl, n_in = pose_opt.optimize_pose(res["R"], res["t"], X, frame.xy,
+                                             okm & res["inliers"], frame.sigma2,
+                                             cam.fx, cam.fy, cam.cx, cam.cy)
+    return okm, res, (R, t, inl, n_in)
+
+
+def check_relocalization(fe, seq, arena, dev):
+    """Phase 7: a later frame relocalized against the arena; the tracker's
+    gates (>= 15 matches, >= 15 PnP inliers) and 1 degree of ground truth."""
+    frame = fe.frame(fe.features(RELOC_FRAME, False), RELOC_FRAME)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    (okm, res, (R, t, _, n_in)), counts = counted(
+        "relocalization", lambda: relocalize(fe, frame, arena, gen), {"hamming_top2": 1})
+    R_gt, t_gt = relative_gt(seq, INIT_PAIR[0], RELOC_FRAME)
+    e_rot, e_dir = rot_err_deg(R, R_gt), dir_err_deg(t, t_gt)
+    n_match, n_pnp = int(okm.sum()), int(res["n_inliers"])
+    ok = n_match >= 15 and bool(res["success"]) and n_pnp >= 15 and e_rot <= 1.0
+    log(f"  frame {RELOC_FRAME} vs {arena[1].shape[0]} landmarks ({arena[3]} from the "
+        f"bootstrap): {n_match} matches (>= 15), PnP inliers {n_pnp} (>= 15), refined "
+        f"inliers {int(n_in)}; rotation error {e_rot:.4f} deg (<= 1), translation direction "
+        f"error {e_dir:.4f} deg  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("relocalization failed its gates")
+    return frame, counts
+
+
+def walls_ms(fn, runs=5):
+    """Wall ms of ``runs`` calls (after one warm-up), each ending in a sync."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def spread(ms):
+    return (f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}; "
+            f"{', '.join(f'{m:.3f}' for m in ms)})")
+
+
+def sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def hamming_timing(dev):
+    """(ms, plain_ms, bound_ms, bound_by) of hamming_top2 at 1024 x 16384:
+    device times from the profiler; the bound from this run's valid pairs
+    (the kernel skips invalid targets) at 16 popcounts per clock per SM."""
+    q, qv, t, tv = top2_cases(dev)["1024x16384"]
+    ms, n = device_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50)
+    ev = event_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50)
+    plain_ms, _ = device_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
+    ms = ms if ms is not None else ev
+    clock = sm_clock_mhz() * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    popc = int(qv.sum()) * int(tv.sum()) * 8
+    t_ops = popc / (POPC_PER_CLK_PER_SM * sms * clock) * 1e3
+    outputs = torch.empty(3, q.shape[0], dtype=torch.int32)
+    t_bytes = nbytes(q, qv, t, tv, outputs) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"  hamming_top2 1024x16384: kernel {ms:.4f} ms device ({n:g} device kernels/call; "
+        f"{ev:.4f} ms by events), plain {plain_ms:.4f} ms device, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {popc / 1e6:.1f} M popcounts at {POPC_PER_CLK_PER_SM}/clk/SM x {sms} SMs "
+        f"x {clock / 1e9:.3f} GHz; bytes {t_bytes * 1e3:.2f} us), library none")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame):
+    """Wall ms (5 runs after a warm-up, each ending in a sync) of each
+    front-end step at EuRoC width."""
+    f1, f2 = frames
+    cam = fe.cam
+    gen = torch.Generator(device=fe.dev).manual_seed(2)
+    pos, desc, valid, _ = arena
+    t_idx, _, okm = matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, valid,
+                                         check_rotation=False)
+    steps = [
+        ("orb.extract 752x480, 1024 features, 8 levels",
+         lambda: fe.features(INIT_PAIR[0], True)),
+        ("search_for_initialization 1024 x 1024",
+         lambda: matching.search_for_initialization(
+             f1.xy, f1.desc, f1.valid, f1.angle, f1.octave,
+             f2.xy, f2.desc, f2.valid, f2.angle, f2.octave)),
+        ("initialize_two_view, 200 F + 200 H hypotheses",
+         lambda: initializer.initialize_two_view(f1.xy, f2.xy[m_idx], m_ok, cam.K,
+                                                 generator=gen)),
+        (f"match_brute 1024 x {desc.shape[0]}",
+         lambda: matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, valid,
+                                      check_rotation=False)),
+        ("ransac_pnp, 200 hypotheses + refine",
+         lambda: pnp.ransac_pnp(pos[t_idx], reloc_frame.xy, okm, reloc_frame.sigma2, cam.fx,
+                                cam.fy, cam.cx, cam.cy, generator=gen)),
+        ("relocalization: match_brute + ransac_pnp + pose refine",
+         lambda: relocalize(fe, reloc_frame, arena, gen)),
+    ]
+    for label, fn in steps:
+        log(f"  {label}: {spread(walls_ms(fn))}")
+        device, wall = device_events(fn)
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        log(f"    profiled once: wall {wall:.3f} ms (profiler on), device busy {busy:.3f} ms "
+            f"({busy / wall:.1%}), {sum(e.count for e in device)} device kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -387,11 +713,13 @@ def main() -> int:
     log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    lib = _build.build("ba_kernels")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("ba_kernels").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    libs = _build.build_all(["ba_kernels", "hamming_kernels"])  # one nvcc each, in parallel
+    log(f"[build] {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {line.strip()}")
 
     # -- phase 2: kernels against their plain versions ---------------------
     rng = np.random.default_rng(0)
@@ -474,13 +802,38 @@ def main() -> int:
     times = kernel_timings(inputs)
     walls = time_solve(bench, 20, 5)
     wall = statistics.median(walls)
-    kernel_ms = sum(gba[name] * times[name][0] for name in gba)
+    kernel_ms = sum(gba[name] * times[name][0] for name in times)
     log(f"[times] ba_solve C=128 P=32768 K=8, 20 iterations, 5 runs: "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; median {wall * 1e3:.2f} ms, "
         f"{wall / 20 * 1e3:.3f} ms per LM iteration ({20 / wall:.1f} iters/s); the port's "
         f"kernels {kernel_ms:.2f} ms of it by device time ({gba['schur_off'] - 20} CG "
         f"steps, one host sync each)")
     profile_solve(bench)
+
+    # -- phase 5: hamming_top2 against its plain version --------------------
+    log("[kernels] hamming_top2 against its plain version")
+    hamming_err = check_hamming(dev)
+
+    # -- phase 6: the client bootstrap at 752x480 ----------------------------
+    t0 = time.perf_counter()
+    seq = RenderedSequence(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22),
+                           cam=config.CameraConfig())
+    images = {i: seq.render_frame(i) for i in (*INIT_PAIR, RELOC_FRAME)}
+    log(f"[front-end] rendered frames {sorted(images)} at 752x480 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("[front-end] bootstrap: extract -> build_frame -> search_for_initialization -> "
+        "initialize_two_view (no kernel on this path)")
+    fe, frames, m_idx, m_ok, out = check_bootstrap(seq, images, dev)
+
+    # -- phase 7: global relocalization --------------------------------------
+    log("[front-end] relocalization: match_brute (hamming_top2) -> ransac_pnp -> refine")
+    arena = landmark_arena(frames, m_idx, out, dev)
+    reloc_frame, reloc = check_relocalization(fe, seq, arena, dev)
+
+    # -- phase 8: front-end times ----------------------------------------------
+    log(f"[times] front-end at 752x480; {smi}")
+    top2_times = hamming_timing(dev)
+    front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -489,6 +842,11 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=gba[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+    ms, plain_ms, bound_ms, bound_by = top2_times
+    kernels.append(dict(
+        name="hamming_top2", route="cuda", source=HAMMING_SOURCE, replaces=f"{PALLAS}:121",
+        launches=reloc["hamming_top2"], max_abs_err=hamming_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -155,6 +155,13 @@ def test_port_imports_no_jax():
         "import ccm_slam_tpu_torch, ccm_slam_tpu_torch.convert, ccm_slam_tpu_torch.problems\n"
         "import ccm_slam_tpu_torch.solvers.ba, ccm_slam_tpu_torch.solvers.pose_opt\n"
         "import ccm_slam_tpu_torch.utils.lie, ccm_slam_tpu_torch.ops.ba_kernels\n"
+        "import ccm_slam_tpu_torch.config, ccm_slam_tpu_torch.utils.camera\n"
+        "import ccm_slam_tpu_torch.ops.hamming, ccm_slam_tpu_torch.ops.hamming_kernels\n"
+        "import ccm_slam_tpu_torch.ops.fast, ccm_slam_tpu_torch.ops.brief\n"
+        "import ccm_slam_tpu_torch.ops.orb, ccm_slam_tpu_torch.ops.matching\n"
+        "import ccm_slam_tpu_torch.ops.initializer, ccm_slam_tpu_torch.ops.pnp\n"
+        "import ccm_slam_tpu_torch.runtime.frame, ccm_slam_tpu_torch.io.euroc\n"
+        "import ccm_slam_tpu_torch.io.rendered\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ccm_slam_tpu' or m.startswith('ccm_slam_tpu.')]\n"
         "assert not bad, bad\n"

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from ccm_slam_tpu_torch import convert, problems
-from ccm_slam_tpu_torch.ops import ba_kernels as bk
+from ccm_slam_tpu_torch.ops import ba_kernels as bk, hamming, hamming_kernels as hk, matching, orb
 from ccm_slam_tpu_torch.solvers import ba
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +111,62 @@ def test_ba_solve_on_card_matches_cpu(branch):
     assert counts["cam_broadcast"] == 1
     if branch == "pcg":
         assert counts["schur_rhs"] == 20 and counts["schur_off"] >= 20
+
+
+def top2_case(name, dev):
+    """Phase-5 cases of chip_smoke.py: (q, qv, t, tv) on ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    Q, Tn = {"relocalization": (1024, 16384), "ragged": (100, 300),
+             "invalid_queries": (128, 256), "one_target": (64, 500)}[name]
+    q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
+    t = torch.randint(0, 256, (Tn, 32), generator=g, dtype=torch.uint8)
+    t[Tn // 2] = t[Tn // 3]  # a tie: the lower index must win
+    qv = torch.ones(Q, dtype=torch.bool)
+    tv = torch.rand(Tn, generator=g) >= 0.25
+    if name == "invalid_queries":
+        qv[-30:] = False
+    if name == "one_target":
+        tv[:] = False
+        tv[Tn - 7] = True
+    return [x.to(dev) for x in (q, qv, t, tv)]
+
+
+@pytest.mark.parametrize("name", ["relocalization", "ragged", "invalid_queries", "one_target"])
+def test_hamming_top2_kernel(name):
+    args = top2_case(name, card())
+    hk.reset_launch_counts()
+    ours = hk.hamming_top2(*args)
+    assert hk.launch_counts()["hamming_top2"] == 1
+    ref = hk.hamming_top2_plain(*args)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a.cpu(), b.cpu())
+    again = hk.hamming_top2(*args)  # no atomics: bit-identical
+    for a, b in zip(ours, again):
+        assert torch.equal(a, b)
+
+
+def test_match_brute_on_card_matches_cpu():
+    q, qv, t, tv = top2_case("relocalization", card())
+    t[:1024] = q  # queries have exact matches in the arena
+    hk.reset_launch_counts()
+    ours = matching.match_brute(q, qv, t, tv, check_rotation=False)
+    assert hk.launch_counts()["hamming_top2"] == 1
+    ref = matching.match_brute(q.cpu(), qv.cpu(), t.cpu(), tv.cpu(), check_rotation=False)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a.cpu(), b)
+    assert int(ours[2].sum()) > 500
+
+
+def test_orb_extract_on_card_matches_cpu():
+    card()
+    g = torch.Generator(device="cpu").manual_seed(3)
+    img = torch.round(torch.nn.functional.avg_pool2d(
+        torch.rand(1, 1, 244, 324, generator=g) * 255, 5, 1)[0, 0])
+    kw = dict(n_features=300, n_levels=4, capacity=320)
+    ours = orb.extract(img.cuda(), **kw)
+    ref = orb.extract(img, **kw)
+    same = (ours.valid.cpu() == ref.valid) & torch.all(ours.xy.cpu() == ref.xy, dim=1)
+    assert float(same.float().mean()) >= 0.99
+    shared = same & ref.valid
+    d = hamming.hamming_pairwise(ours.desc.cpu(), ref.desc)[shared]
+    assert float((d == 0).float().mean()) >= 0.99

@@ -1,0 +1,49 @@
+"""The port's numpy renderer against the JAX package's numpy backend: the
+same seeds give the same textures, rays, trajectories, frames and ground
+truth, exactly (numpy against numpy)."""
+
+import numpy as np
+import pytest
+
+from ccm_slam_tpu.config import scaled_camera as j_scaled_camera
+from ccm_slam_tpu.io import rendered as jr
+from ccm_slam_tpu_torch.config import scaled_camera
+from ccm_slam_tpu_torch.io import rendered as tr
+
+
+def test_texture_and_rays_match():
+    for seed, (h, w) in ((0, (64, 96)), (1, (40, 200))):
+        np.testing.assert_array_equal(tr.make_texture(np.random.RandomState(seed), h, w),
+                                      jr.make_texture(np.random.RandomState(seed), h, w))
+    cam, jcam = scaled_camera(factor=0.1), j_scaled_camera(factor=0.1)
+    for ss in (1, 2):
+        np.testing.assert_array_equal(tr.pixel_rays(cam, ss), jr.pixel_rays(jcam, ss))
+
+
+@pytest.mark.parametrize("world", ["corridor", "loop"])
+def test_trajectories_match(world):
+    ours = getattr(tr, f"{world}_trajectory")(50, 20.0, (0.0, 0.3))
+    ref = getattr(jr, f"{world}_trajectory")(50, 20.0, (0.0, 0.3))
+    for (t, o, R), (t_r, o_r, R_r) in zip(ours, ref):
+        assert t == t_r
+        np.testing.assert_array_equal(o, o_r)
+        np.testing.assert_array_equal(R, R_r)
+
+
+def test_corridor_frames_and_ground_truth_match():
+    kw = dict(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22))
+    ours = tr.RenderedSequence(cam=scaled_camera(factor=0.1), **kw)
+    ref = jr.RenderedSequence(cam=j_scaled_camera(factor=0.1), backend="numpy", **kw)
+    for i in (0, 6, 150):
+        img = ours.render_frame(i)
+        assert img.shape == (48, 75) and img.dtype == np.float32
+        np.testing.assert_array_equal(img, ref.render_frame(i))
+    for a, b in zip(ours.ground_truth(), ref.ground_truth()):
+        np.testing.assert_array_equal(a, b)
+    frames = list(ours.frames(start=0.2, limit=2))
+    assert [f.timestamp for f in frames] == [0.2, 0.25]
+    np.testing.assert_array_equal(frames[0].image, ref.render_frame(4))
+    t, o, R = ours.gt_pose(6)
+    np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-6)
+    with pytest.raises(ValueError):
+        tr.RenderedSequence(world="maze").render_frame(0)
