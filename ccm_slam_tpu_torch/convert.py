@@ -9,16 +9,22 @@ returns, so an interrupted solve can continue in either package.
 ``features_from_numpy`` / ``frame_from_numpy`` carry ORB features and frames
 across the same way (``feature_fields`` / ``frame_fields`` read them), so
 both packages' matching and geometry can run on identical inputs.
+``map_state_fields`` / ``map_state_from_numpy`` / ``map_state_to_numpy`` do
+it for a whole ``MapState`` (every arena field, the cursors), and
+``system_config_from`` copies a configuration tree field by field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from . import config as _config
 from .device import resolve_device
+from .models import map_store as ms
 from .ops.orb import FrameFeatures
 from .runtime.frame import Frame
 from .solvers.ba import BAProblem
@@ -109,3 +115,57 @@ def features_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> FrameF
 def frame_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> Frame:
     """The port's Frame on ``device`` (the card unless told otherwise)."""
     return Frame(**_tensors(fields, FRAME_FIELDS, device))
+
+
+_KF_FIELDS = tuple(f.name for f in dataclasses.fields(ms.KeyFrameStore))
+_MP_FIELDS = tuple(f.name for f in dataclasses.fields(ms.MapPointStore))
+_CURSORS = ("next_kf", "next_mp", "insert_counter")
+
+
+def map_state_fields(obj) -> dict:
+    """Every field of a MapState (either package's) as numpy arrays:
+    {"kfs": {...}, "mps": {...}, "next_kf", "next_mp", "insert_counter"}."""
+    out = {"kfs": {n: np.asarray(getattr(obj.kfs, n)) for n in _KF_FIELDS},
+           "mps": {n: np.asarray(getattr(obj.mps, n)) for n in _MP_FIELDS}}
+    out.update({n: np.asarray(getattr(obj, n)) for n in _CURSORS})
+    return out
+
+
+def map_state_from_numpy(fields: Mapping, device=None) -> ms.MapState:
+    """The port's MapState on ``device`` (the card unless told otherwise),
+    each tensor with its array's dtype; cursors as 0-d int32."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    return ms.MapState(
+        kfs=ms.KeyFrameStore(**{n: t(fields["kfs"][n]) for n in _KF_FIELDS}),
+        mps=ms.MapPointStore(**{n: t(fields["mps"][n]) for n in _MP_FIELDS}),
+        **{n: torch.tensor(int(fields[n]), dtype=torch.int32, device=dev) for n in _CURSORS},
+    )
+
+
+def map_state_to_numpy(m: ms.MapState) -> dict:
+    """``map_state_fields`` of the port's MapState (copied to the host)."""
+    def h(x):
+        return np.asarray(x.detach().cpu())
+
+    out = {"kfs": {n: h(getattr(m.kfs, n)) for n in _KF_FIELDS},
+           "mps": {n: h(getattr(m.mps, n)) for n in _MP_FIELDS}}
+    out.update({n: h(getattr(m, n)) for n in _CURSORS})
+    return out
+
+
+def system_config_from(obj) -> _config.SystemConfig:
+    """The port's SystemConfig with every field read from ``obj`` (any
+    configuration tree with the same sections and names, e.g. the JAX
+    package's), section by section."""
+    sections = {}
+    for f in dataclasses.fields(_config.SystemConfig):
+        val = getattr(obj, f.name)
+        if dataclasses.is_dataclass(val):
+            cls = type(getattr(_config.DEFAULT_CONFIG, f.name))
+            val = cls(**{g.name: getattr(val, g.name) for g in dataclasses.fields(cls)})
+        sections[f.name] = val
+    return _config.SystemConfig(**sections)

@@ -9,6 +9,10 @@
 //   ccm_schur_rhs      <- make_schur_ops.rhs   (_schur_rhs_kernel)
 //   ccm_schur_wtv      <- make_schur_ops.wtv   (_schur_wtv_kernel)
 //   ccm_cam_broadcast  <- cam_broadcast        (_cam_broadcast_kernel)
+//   ccm_cam_reduce     <- cam_reduce           (_cam_reduce_kernel)
+//
+// make_schur_matvec's pallas_call runs the same kernel body as
+// make_schur_ops.off (_schur_matvec_kernel), so ccm_schur_off carries both.
 //
 // What bounds them on an H100: bytes.  Every kernel does a few hundred flops
 // per observation at most, against 24-170 bytes moved, so all sit far below
@@ -379,6 +383,23 @@ __global__ void cam_broadcast_kernel(const float* __restrict__ v, const int* __r
   out[i] = (c >= 0 && c < C) ? v[(size_t)c * F + f] : 0.0f;
 }
 
+// ---------------------------------------------------------------------------
+// Observation -> camera segment sum with drops: each kept row y[e] goes to
+// its camera-sorted slot pos[e]; rows whose camera id was outside [0, C) sit
+// in a trailing drop bucket (slots >= offsets[C]) and are never written or
+// summed.  seg_sum_kernel then sums each camera's slots in a fixed order.
+// ---------------------------------------------------------------------------
+__global__ void scatter_rows_kernel(const float* __restrict__ y, const int* __restrict__ pos,
+                                    const int* __restrict__ offsets, int C, int F, long long n,
+                                    float* __restrict__ rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long e = i / F;
+  const int f = (int)(i - e * F);
+  const int j = pos[e];
+  if (j < offsets[C]) rows[(size_t)j * F + f] = y[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -457,6 +478,19 @@ int ccm_cam_broadcast(const float* v, const int* ci, int C, int F, int E, float*
     const long long nb = (n + kThreads - 1) / kThreads;
     cam_broadcast_kernel<<<(unsigned)nb, kThreads, 0, s>>>(v, ci, C, F, n, out);
   }
+  return (int)cudaGetLastError();
+}
+
+// out [C,F]; rows [E,F] scratch; pos [E], offsets [C+1] (offsets[C] = rows kept).
+int ccm_cam_reduce(const float* y, const int* pos, const int* offsets, int C, int F, int E,
+                   float* rows, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n = (long long)E * F;
+  if (n > 0) {
+    const long long nb = (n + kThreads - 1) / kThreads;
+    scatter_rows_kernel<<<(unsigned)nb, kThreads, 0, s>>>(y, pos, offsets, C, F, n, rows);
+  }
+  launch_seg_sum(rows, offsets, C, F, out, s);
   return (int)cudaGetLastError();
 }
 

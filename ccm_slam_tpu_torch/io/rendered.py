@@ -10,10 +10,18 @@ truth -- the worlds the JAX package's rendered accuracy gates use:
 * ``loop``     -- a rectangular corridor circuit that returns to its start.
 
 Rendering: per-pixel rays are precomputed once by iteratively undistorting
-the pixel grid; each frame intersects the rays with the world's planes
-(vectorized numpy raycast) and bilinearly samples per-plane procedural
-textures.  Only the reference's numpy backend is carried over: the frames
-are identical to the reference's for the same seed and camera.
+the pixel grid; each frame intersects the rays with the world's planes and
+bilinearly samples per-plane procedural textures.  Two backends:
+
+* ``numpy`` (the default): the reference's numpy path; frames identical to
+  the reference's for the same seed and camera;
+* ``torch``: the counterpart of the reference's XLA raycaster
+  (``make_raycaster_jax``) in plain tensor work on a device (the card unless
+  told otherwise); frames come back as float32 tensors on that device.  The
+  sensor noise is drawn from the same numpy stream, so frames differ from
+  the numpy path only by float rounding of the ray geometry.
+
+The reference's on-disk frame cache is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..config import CameraConfig
+from ..device import resolve_device
 from .euroc import EurocFrame
 
 # --------------------------------------------------------------- textures ----
@@ -333,15 +343,85 @@ def _sensor_model(img: np.ndarray, t: float, rng: np.random.RandomState,
     """Exposure drift + vignetting + sensor noise + 8-bit quantization."""
     H, W = img.shape
     if exposure:
-        gain = 1.0 + 0.10 * math.sin(0.45 * t + 0.7)
-        yy = (np.arange(H, dtype=np.float32) - H / 2) / (H / 2)
-        xx = (np.arange(W, dtype=np.float32) - W / 2) / (W / 2)
-        vign = 1.0 - 0.25 * (yy[:, None] ** 2 + xx[None, :] ** 2) / 2.0
+        gain, vign = _sensor_gain_vignette(H, W, t)
         img = img * gain * vign
     if noise_std > 0:
         img = img + rng.randn(H, W).astype(np.float32) * noise_std
     # sensor quantization
     return np.clip(img, 0, 255).astype(np.uint8).astype(np.float32)
+
+
+def _sensor_gain_vignette(H: int, W: int, t: float):
+    gain = 1.0 + 0.10 * math.sin(0.45 * t + 0.7)
+    yy = (np.arange(H, dtype=np.float32) - H / 2) / (H / 2)
+    xx = (np.arange(W, dtype=np.float32) - W / 2) / (W / 2)
+    return gain, 1.0 - 0.25 * (yy[:, None] ** 2 + xx[None, :] ** 2) / 2.0
+
+
+def _sensor_model_torch(img: torch.Tensor, t: float, rng: np.random.RandomState,
+                        noise_std: float, exposure: bool) -> torch.Tensor:
+    """``_sensor_model`` on a device tensor: the same exposure drift,
+    vignetting, numpy-drawn noise and 8-bit quantization."""
+    H, W = img.shape
+    if exposure:
+        gain, vign = _sensor_gain_vignette(H, W, t)
+        img = img * gain * torch.as_tensor(vign, device=img.device)
+    if noise_std > 0:
+        noise = rng.randn(H, W).astype(np.float32) * noise_std
+        img = img + torch.as_tensor(noise, device=img.device)
+    return torch.clamp(img, 0, 255).to(torch.uint8).to(torch.float32)
+
+
+def make_raycaster_torch(planes, rays_cam: np.ndarray, ss: int = 1, device=None):
+    """The per-frame raycast as tensor work on ``device`` (the card unless
+    told otherwise): the counterpart of the reference's
+    ``make_raycaster_jax`` -- closest positive hit wins, bilinear texture
+    sampling, box pixel integration over the ss x ss subgrid.  Returns
+    ``run(R_wc, o_w) -> [H/ss, W/ss]`` float32 (before the sensor model)."""
+    dev = resolve_device(device)
+    H, W, _ = rays_cam.shape
+    rays = torch.as_tensor(rays_cam.reshape(-1, 3), device=dev)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    geo = [(t(pl.p0), t(pl.e1), t(pl.e2), t(pl.normal), float(np.dot(pl.e1, pl.e1)),
+            float(np.dot(pl.e2, pl.e2)), t(pl.tex)) for pl in planes]
+
+    def run(R_wc, o_w):
+        R, o = t(R_wc), t(o_w)
+        d = rays @ R.T  # [N,3] world-frame ray directions
+        best_tt = torch.full((rays.shape[0],), float("inf"), device=dev)
+        best_val = torch.full((rays.shape[0],), 25.0, device=dev)
+        for p0, e1, e2, n, e1sq, e2sq, tex in geo:
+            denom = d @ n
+            tt = torch.dot(p0 - o, n) / denom
+            rel = o - p0
+            a = (torch.dot(rel, e1) + tt * (d @ e1)) / e1sq
+            b = (torch.dot(rel, e2) + tt * (d @ e2)) / e2sq
+            ok = ((torch.abs(denom) > 1e-9) & (tt > 0.05) & (tt < best_tt)
+                  & (a >= 0) & (a < 1) & (b >= 0) & (b < 1))
+            th, tw = tex.shape
+            # rays parallel to the plane give NaN; their samples are masked
+            # out, the gather only needs an index in range
+            fu = torch.nan_to_num(torch.clamp(a, 0.0, 1.0)) * (tw - 1)
+            fv = torch.nan_to_num(torch.clamp(b, 0.0, 1.0)) * (th - 1)
+            u0 = fu.to(torch.int64)
+            v0 = fv.to(torch.int64)
+            u1 = torch.clamp(u0 + 1, max=tw - 1)
+            v1 = torch.clamp(v0 + 1, max=th - 1)
+            au = fu - u0
+            av = fv - v0
+            val = (tex[v0, u0] * (1 - au) * (1 - av) + tex[v0, u1] * au * (1 - av)
+                   + tex[v1, u0] * (1 - au) * av + tex[v1, u1] * au * av)
+            best_val = torch.where(ok, val, best_val)
+            best_tt = torch.where(ok, tt, best_tt)
+        img = best_val.reshape(H, W)
+        if ss > 1:
+            img = img.reshape(H // ss, ss, W // ss, ss).mean(dim=(1, 3))
+        return img
+
+    return run
 
 
 # ---------------------------------------------------------------- sequence ----
@@ -358,6 +438,8 @@ class RenderedSequence:
     cam: CameraConfig = field(default_factory=CameraConfig)
     noise_std: float = 2.0
     supersample: int = 2      # rendering anti-aliasing factor
+    backend: str = "numpy"    # numpy | torch (raycast on ``device``)
+    device: Optional[object] = None  # torch backend: the card unless told otherwise
     _cache: dict = field(default_factory=dict, repr=False)
 
     def _setup(self):
@@ -380,12 +462,22 @@ class RenderedSequence:
     def _frame_rng(self, i: int) -> np.random.RandomState:
         return np.random.RandomState((self.seed + 991) * 1000003 + i)
 
-    def render_frame(self, i: int) -> np.ndarray:
-        """[H,W] float32 frame i."""
+    def render_frame(self, i: int):
+        """[H,W] float32 frame i: a numpy array, or a tensor on the device
+        for the torch backend."""
         planes, traj, rays = self._setup()
         t, o, R_wc = traj[i]
-        return render(planes, rays, R_wc, o, self._frame_rng(i), t=t,
-                      noise_std=self.noise_std, ss=self.supersample)
+        rng = self._frame_rng(i)
+        if self.backend == "torch":
+            if "raycast" not in self._cache:
+                self._cache["raycast"] = make_raycaster_torch(planes, rays, self.supersample,
+                                                              self.device)
+            core = self._cache["raycast"](R_wc, o)
+            return _sensor_model_torch(core, t, rng, self.noise_std, exposure=True)
+        if self.backend != "numpy":
+            raise ValueError(f"unknown backend {self.backend!r}")
+        return render(planes, rays, R_wc, o, rng, t=t, noise_std=self.noise_std,
+                      ss=self.supersample)
 
     def frames(self, start: float = 0.0, limit: Optional[int] = None) -> Iterator[EurocFrame]:
         _, traj, _ = self._setup()

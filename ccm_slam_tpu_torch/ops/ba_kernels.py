@@ -1,12 +1,15 @@
 """The bundle-adjustment kernels: CUDA on the card, plain PyTorch on the CPU.
 
-Four kernel families carry ``solvers.ba.ba_solve``; each replaces a Pallas
-TPU kernel of ``ccm_slam_tpu/ops/pallas_kernels.py``:
+Four kernel families carry ``solvers.ba.ba_solve``; with the last two below
+(the GBA profiling path, ``profile_gba``) each replaces a Pallas TPU kernel of
+``ccm_slam_tpu/ops/pallas_kernels.py``:
 
-  reproj_cost    <- fused_reproj_cost     Huber reprojection cost (scalar)
-  normal_blocks  <- fused_normal_blocks   U, V, W, g_c, g_p and the cost
-  schur_ops      <- make_schur_ops        (off, rhs, wtv) Schur operators
-  cam_broadcast  <- cam_broadcast         camera rows -> observation rows
+  reproj_cost        <- fused_reproj_cost     Huber reprojection cost (scalar)
+  normal_blocks      <- fused_normal_blocks   U, V, W, g_c, g_p and the cost
+  schur_ops          <- make_schur_ops        (off, rhs, wtv) Schur operators
+  cam_broadcast      <- cam_broadcast         camera rows -> observation rows
+  cam_reduce         <- cam_reduce            observation rows -> camera sums
+  make_schur_matvec  <- make_schur_matvec     the fused off-diagonal matvec
 
 The kernels are hand-written CUDA C++ (``csrc/ba_kernels.cu``, built by
 ``_build`` on first use, bound with ctypes).  Beside each wrapper sits its
@@ -40,6 +43,8 @@ LAUNCHES = {
     "schur_rhs": 0,
     "schur_wtv": 0,
     "cam_broadcast": 0,
+    "cam_reduce": 0,
+    "schur_matvec": 0,
 }
 
 _THREADS = 256  # per-landmark block size in csrc/ba_kernels.cu
@@ -53,6 +58,7 @@ _SIGNATURES = {
     "ccm_schur_rhs": [_P] * 4 + [_I, _I, _I] + [_P] * 3,
     "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
     "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
+    "ccm_cam_reduce": [_P] * 3 + [_I, _I, _I] + [_P] * 3,
 }
 
 
@@ -125,6 +131,28 @@ def cam_csr(cam_idx: torch.Tensor, C: int) -> CamCSR:
     offsets = torch.zeros(C + 1, dtype=torch.int64, device=flat.device)
     offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=C), 0)
     return CamCSR(C=C, ci=ci, pos=pos.to(torch.int32), offsets=offsets.to(torch.int32))
+
+
+@dataclass(frozen=True)
+class ReduceCSR:
+    """Rows grouped by camera for ``cam_reduce``: rows whose id lies outside
+    [0, C) are DROPPED (sorted into a trailing bucket that is never summed),
+    unlike ``cam_csr``, which clamps ids for BA.  Camera c owns sorted slots
+    ``offsets[c]:offsets[c+1]``; ``offsets[C]`` is the number of rows kept."""
+
+    C: int
+    pos: torch.Tensor      # [E] int32
+    offsets: torch.Tensor  # [C+1] int32
+
+
+def reduce_csr(ci: torch.Tensor, C: int) -> ReduceCSR:
+    key = torch.where((ci >= 0) & (ci < C), ci, C).long()
+    order = torch.argsort(key, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(key.numel(), device=key.device)
+    offsets = torch.zeros(C + 1, dtype=torch.int64, device=key.device)
+    offsets[1:] = torch.cumsum(torch.bincount(key, minlength=C + 1)[:C], 0)
+    return ReduceCSR(C=C, pos=pos.to(torch.int32), offsets=offsets.to(torch.int32))
 
 
 def _check_csr(csr: CamCSR, C: int, P: int, K: int, device) -> None:
@@ -216,6 +244,19 @@ def cam_broadcast_plain(v, ci):
     return torch.where(ok[:, None], v[ci.clamp(0, C - 1).long()], 0.0)
 
 
+def cam_reduce_plain(y, ci, C: int):
+    """Plain ``cam_reduce`` (the reference's ``cam_reduce_reference``: a
+    masked segment sum, as ``index_add_``)."""
+    ok = (ci >= 0) & (ci < C)
+    out = torch.zeros(C, y.shape[1], dtype=y.dtype, device=y.device)
+    return out.index_add_(0, torch.where(ok, ci, 0).long(), torch.where(ok[:, None], y, 0.0))
+
+
+def schur_matvec_plain(W, Vinv, cam_idx, C: int):
+    """Plain ``make_schur_matvec`` (the reference's ``schur_matvec_reference``)."""
+    return schur_ops_plain(W, Vinv, cam_idx, C)[0]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: kernel on the card, plain version on the CPU.
 # ---------------------------------------------------------------------------
@@ -274,6 +315,35 @@ def normal_blocks(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, cam_fixe
     return UG[:, :36].reshape(C, 6, 6), V, W, UG[:, 36:], g_p, cost
 
 
+def _check_schur(W, Vinv, csr: CamCSR):
+    """Validate the Schur operands; returns (P, K, device)."""
+    dev = W.device
+    if W.dim() != 4:
+        raise ValueError(f"W: expected [P,K,6,3], got {tuple(W.shape)}")
+    P, K = W.shape[:2]
+    _check("W", W, torch.float32, (P, K, 6, 3), dev)
+    _check("Vinv", Vinv, torch.float32, (P, 3, 3), dev)
+    _check_csr(csr, csr.C, P, K, dev)
+    return P, K, dev
+
+
+def _schur_off(W, Vinv, csr: CamCSR, counter: str):
+    """``off`` on the card: ccm_schur_off, counted under ``counter``."""
+    P, K, dev = _check_schur(W, Vinv, csr)
+    C = csr.C
+
+    def off(v):
+        _check("v", v, torch.float32, (C, 6), dev)
+        rows = torch.empty(P * K, 6, dtype=torch.float32, device=dev)
+        out = torch.empty(C, 6, dtype=torch.float32, device=dev)
+        _launch("ccm_schur_off", dev, _ptr(v), _ptr(W), _ptr(Vinv), _ptr(csr.ci),
+                _ptr(csr.pos), _ptr(csr.offsets), C, P, K, _ptr(rows), _ptr(out))
+        LAUNCHES[counter] += 1
+        return out
+
+    return off
+
+
 def schur_ops(W, Vinv, csr: CamCSR):
     """The three Schur-stage operators over W [P,K,6,3]:
 
@@ -282,26 +352,12 @@ def schur_ops(W, Vinv, csr: CamCSR):
       wtv(v [C,6]) -> [P,3]  landmark sums of W_e^T v[ci_e]
 
     with ci = csr.ci (cam_idx clipped to [0, C))."""
-    dev = W.device
+    P, K, dev = _check_schur(W, Vinv, csr)
     C = csr.C
-    if W.dim() != 4:
-        raise ValueError(f"W: expected [P,K,6,3], got {tuple(W.shape)}")
-    P, K = W.shape[:2]
-    _check("W", W, torch.float32, (P, K, 6, 3), dev)
-    _check("Vinv", Vinv, torch.float32, (P, 3, 3), dev)
-    _check_csr(csr, C, P, K, dev)
     if not _on_card(dev):
         return schur_ops_plain(W, Vinv, csr.ci, C)
     f32 = dict(dtype=torch.float32, device=dev)
-
-    def off(v):
-        _check("v", v, torch.float32, (C, 6), dev)
-        rows = torch.empty(P * K, 6, **f32)
-        out = torch.empty(C, 6, **f32)
-        _launch("ccm_schur_off", dev, _ptr(v), _ptr(W), _ptr(Vinv), _ptr(csr.ci),
-                _ptr(csr.pos), _ptr(csr.offsets), C, P, K, _ptr(rows), _ptr(out))
-        LAUNCHES["schur_off"] += 1
-        return out
+    off = _schur_off(W, Vinv, csr, "schur_off")
 
     def rhs(q):
         _check("q", q, torch.float32, (P, 3), dev)
@@ -338,3 +394,48 @@ def cam_broadcast(v, ci):
     _launch("ccm_cam_broadcast", dev, _ptr(v), _ptr(ci), C, F, E, _ptr(out))
     LAUNCHES["cam_broadcast"] += 1
     return out
+
+
+def cam_reduce(y, ci, C: int, csr: ReduceCSR = None):
+    """Observation rows to camera sums: out[c] = sum_{e: ci[e]=c} y[e]; rows
+    whose id lies outside [0, C) are dropped.  y [E,F] float32, ci [E] int32
+    -> [C,F].  ``csr`` (``reduce_csr(ci, C)``) may be passed in when ci is
+    reused across calls.  The sum runs in a fixed order (no atomics)."""
+    dev = y.device
+    if y.dim() != 2 or ci.dim() != 1:
+        raise ValueError(f"expected y [E,F] and ci [E], got {tuple(y.shape)}, {tuple(ci.shape)}")
+    E, F = y.shape
+    _check("y", y, torch.float32, (E, F), dev)
+    _check("ci", ci, torch.int32, (E,), dev)
+    if C <= 0:
+        raise ValueError("cam_reduce: need at least one camera")
+    if not _on_card(dev):
+        return cam_reduce_plain(y, ci, C)
+    csr = reduce_csr(ci, C) if csr is None else csr
+    if csr.C != C:
+        raise ValueError(f"csr built for C={csr.C}, call has C={C}")
+    _check("csr.pos", csr.pos, torch.int32, (E,), dev)
+    _check("csr.offsets", csr.offsets, torch.int32, (C + 1,), dev)
+    rows = torch.empty(E, F, dtype=torch.float32, device=dev)
+    out = torch.empty(C, F, dtype=torch.float32, device=dev)
+    _launch("ccm_cam_reduce", dev, _ptr(y), _ptr(csr.pos), _ptr(csr.offsets), C, F, E,
+            _ptr(rows), _ptr(out))
+    LAUNCHES["cam_reduce"] += 1
+    return out
+
+
+def make_schur_matvec(W, Vinv, cam_idx, C: int):
+    """The fused off-diagonal Schur matvec, ``off(v [C,6]) -> [C,6]`` =
+    sum_e W_e Vinv_p(e) sum_{e' in p(e)} W_e'^T v[ci_e'], with cam_idx
+    [P,K] clipped to [0, C) as the reference clips it.
+
+    Counterpart of ``pallas_kernels.make_schur_matvec``.  That function's
+    pallas_call runs the same kernel body (``_schur_matvec_kernel``) as
+    ``make_schur_ops``' off, so here it launches the same CUDA kernel as
+    ``schur_ops``' off (``ccm_schur_off``), counted under its own key
+    ``LAUNCHES["schur_matvec"]``.  The camera CSR is built once, here."""
+    csr = cam_csr(cam_idx, C)
+    _check_schur(W, Vinv, csr)
+    if not _on_card(W.device):
+        return schur_matvec_plain(W, Vinv, csr.ci, C)
+    return _schur_off(W, Vinv, csr, "schur_matvec")

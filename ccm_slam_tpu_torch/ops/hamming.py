@@ -2,8 +2,8 @@
 
 Counterpart of ``ccm_slam_tpu/ops/hamming.py``.  Descriptors are ``uint8
 [N, 32]`` (256 bits, LSB-first per byte).  Distances are XOR + popcount on
-the packed bytes, exact in integers; the reference's bit-unpacked bf16
-matmul is a TPU (MXU) artifact and is not copied.
+the packed bits (as four 64-bit words), exact in integers; the reference's
+bit-unpacked bf16 matmul is a TPU (MXU) artifact and is not copied.
 
 Tie rule, everywhere: among equal distances the lowest index wins (the
 reference's ``jax.lax.top_k`` / ``argmin`` order), so callers that resolve
@@ -36,16 +36,27 @@ def pack_bits(bits):
     return torch.sum(b << shifts, dim=-1).to(torch.uint8)
 
 
-def popcount8(x):
-    """Per-byte popcount of a uint8 tensor (SWAR on the byte)."""
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    return (x + (x >> 4)) & 0x0F
+def popcount64(x):
+    """Per-word popcount of an int64 tensor (SWAR; the masks clear the bits
+    that the arithmetic shift of a negative word brings in)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return (x + (x >> 32)) & 0x7F
+
+
+def _words(desc_u8):
+    """uint8 [..., 32] -> int64 [..., 4] (the same bits, as four words)."""
+    if desc_u8.stride(-1) != 1:
+        desc_u8 = desc_u8.contiguous()
+    return desc_u8.view(torch.int64)
 
 
 def hamming_pairwise(a_u8, b_u8):
     """Elementwise-paired distance: [..., 32] x [..., 32] -> [...] int32."""
-    return torch.sum(popcount8(a_u8 ^ b_u8), dim=-1, dtype=torch.int32)
+    return torch.sum(popcount64(_words(a_u8) ^ _words(b_u8)), dim=-1, dtype=torch.int32)
 
 
 def hamming_cross(query_u8, db_u8):
@@ -54,9 +65,11 @@ def hamming_cross(query_u8, db_u8):
     Computed in row chunks so the [chunk, D, 32] XOR planes stay bounded."""
     Q, D = query_u8.shape[0], db_u8.shape[0]
     out = torch.empty(Q, D, dtype=torch.int32, device=query_u8.device)
+    q64, d64 = _words(query_u8), _words(db_u8)
     step = max(1, _CHUNK_BYTES // max(D * 32, 1))
     for q0 in range(0, Q, step):
-        out[q0:q0 + step] = hamming_pairwise(query_u8[q0:q0 + step, None, :], db_u8[None])
+        x = q64[q0:q0 + step, None, :] ^ d64[None]
+        out[q0:q0 + step] = torch.sum(popcount64(x), dim=-1, dtype=torch.int32)
     return out
 
 

@@ -5,14 +5,14 @@ associations, as a dataclass of tensors.  Counterpart of
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
+from ..models.map_store import NO_MP
 from ..ops.orb import FrameFeatures
 from ..solvers.reproj import level_sigma2
-
-NO_MP = -1  # "no landmark" in ``mp`` (the reference's map_store.NO_MP)
 
 
 @dataclass(frozen=True)
@@ -29,8 +29,15 @@ class Frame:
     mp: torch.Tensor         # [N] int32 landmark arena idx or NO_MP
 
     @property
+    def n_feat(self):
+        return self.xy.shape[0]
+
+    @property
     def n(self):
         return torch.sum(self.valid.to(torch.int32))
+
+    def replace(self, **kw) -> "Frame":
+        return dataclasses.replace(self, **kw)
 
 
 def build_frame(feats: FrameFeatures, cam, timestamp, scale_factor: float = 1.2) -> Frame:

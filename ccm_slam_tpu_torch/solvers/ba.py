@@ -80,6 +80,29 @@ def _obs_poses(R, t, ci):
     return Rt[:, :9].reshape(P, K, 3, 3), Rt[:, 9:].reshape(P, K, 3)
 
 
+def pcg_transitions(cam_idx, C: int):
+    """(broadcast, reduce): the camera <-> observation transition operators
+    of the PCG branch, counterpart of the reference's
+    ``_pcg_transitions_pallas``: ids clipped to [0, C);
+    ``broadcast(v [C,F]) -> [E,F]`` is ``cam_broadcast`` and
+    ``reduce(y [E,F]) -> [C,F]`` is ``cam_reduce`` (its CSR built once here).
+
+    ``ba_solve`` does not use them: its fused ``normal_blocks`` /
+    ``schur_ops`` kernels do the camera sums, as the reference's solve
+    ignores the transitions when its fused kernels run.  The GBA profiling
+    path (``profile_gba``) does."""
+    ci = cam_idx.reshape(-1).clamp(0, C - 1).to(torch.int32).contiguous()
+    csr = ba_kernels.reduce_csr(ci, C) if ci.device.type == "cuda" else None
+
+    def broadcast(v):
+        return ba_kernels.cam_broadcast(v.contiguous(), ci)
+
+    def reduce(y):
+        return ba_kernels.cam_reduce(y.contiguous(), ci, C, csr=csr)
+
+    return broadcast, reduce
+
+
 def _residuals_and_weights(prob: BAProblem, ci, R, t, X, huber_delta, use_huber=True):
     """Per-obs residuals r [P,K,2], robust*info weights w [P,K], chi2 [P,K],
     the validity mask, and the per-obs camera rotation Rc; ``ci`` as in

@@ -9,9 +9,10 @@ entry points with the launch counts set to 0 before each path and held to
 that path's own expected counts after it:
 
   1. device and build;
-  2. the BA kernels at the server-GBA shapes and on a ragged case;
-  3. server-scale global BA (PCG branch), local-BA-size BA (dense branch),
-     an interrupted (chunked) solve, the pose-only tracking step;
+  2. the BA kernels at the server-GBA shapes, on a ragged case and at the
+     client's local-BA widths (K=16 and K=32 observation slots);
+  3. server-scale global BA (PCG branch), local-BA-size BA (dense branch, at
+     K=8, 16 and 32), an interrupted (chunked) solve, the pose-only step;
   4. BA times;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
      of the targets invalid, a ragged case, invalid queries, a single valid
@@ -21,16 +22,28 @@ that path's own expected counts after it:
      ``search_for_initialization`` -> ``initialize_two_view``, gated on the
      renderer's ground truth, and the same frames through the port on the
      CPU;
-  7. global relocalization: a later frame's features ``match_brute``-d
-     against a 16384-slot landmark arena (the ``hamming_top2`` kernel), then
-     ``ransac_pnp`` and a pose refine, gated as the tracker gates it;
-  8. front-end times (medians of 5 runs with their spread).
+  7. relocalization through the ``Tracker``: bootstrapped on the same frames,
+     its 16384-slot landmark arena filled, then a later frame relocalized
+     (``match_brute`` -> the ``hamming_top2`` kernel, RANSAC-PnP, refine,
+     local-map gate), checked against ground truth;
+  8. front-end times (medians of 5 runs with their spread);
+  9. ``cam_reduce`` (F=6 and 42 at the server-GBA and stress shapes, and a
+     ragged case whose ids -1 and >= C must be dropped) and
+     ``make_schur_matvec`` (server-GBA and stress shapes) against their plain
+     versions, bit-identical on a rerun;
+ 10. the GBA profiling path: ``profile_gba`` at the stress shape (C=1024,
+     P=131,072, K=8), every component's device time;
+ 11. the single-agent client loop at full width: ``Tracker.process_image``
+     over 200 rendered 752x480 corridor frames (rendered on the card first)
+     with ``rendered_ci_config(1.0)``, gated on tracking, LOST and keyframe
+     ATE against ground truth; per-frame wall times, device kernels and busy
+     share of profiled frames, host reads.
 
-It prints one line per step, the card's name and power limit as
-``nvidia-smi`` reports them, on the line before the last ``{"kernels":
-[...]}`` (each kernel's launches on its path, error against its plain
-version, device time, plain time, bound and library yardstick), and last
-``{"ok": true, "device": {...}}``.
+It prints one line per step with each phase's wall time, the card's name and
+power limit as ``nvidia-smi`` reports them, on the line before the last
+``{"kernels": [...]}`` (each kernel's launches on its path, error against
+its plain version, device time, plain time, bound and library yardstick),
+and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails.  Imports nothing of the JAX package.
@@ -49,9 +62,14 @@ import torch
 
 from ccm_slam_tpu_torch import config, convert, problems
 from ccm_slam_tpu_torch.io.rendered import RenderedSequence
+from ccm_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers
+from ccm_slam_tpu_torch.models import map_store as ms
 from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_kernels as hk
 from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
+from ccm_slam_tpu_torch.profile_gba import profile_gba
+from ccm_slam_tpu_torch.runtime import mapping, tracking
 from ccm_slam_tpu_torch.runtime.frame import build_frame
+from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
 
@@ -86,6 +104,16 @@ RELOC_FRAME = 10
 JAX_PAIR_ERR_DEG = (0.1228, 1.4517)
 MIN_ERR_GATE_DEG = (0.5, 5.0)
 
+# phase 11: the client loop over the same sequence, and the JAX package's own
+# keyframe ATE on it at 752x480 (rendered_ci_config(1.0), Sim(3)-aligned;
+# ``python3 tools/jax_client_ate.py --factor 1.0``: 199 of 200 frames
+# tracked, not LOST, 35 keyframes, span 18.848 m)
+CLIENT_FRAMES = 200
+JAX_CLIENT_ATE_M = 0.05348373204469681
+PROFILED_FRAMES = (150, 151, 152)  # frames run under torch.profiler
+CAMERA_PERIOD_MS = 50.0            # EuRoC's 20 fps
+PROFILE_REPS = 20                  # phase 10: profile_gba repetitions
+
 # Tolerances, kernel against plain version (both fp32 on the card).  Sums
 # are taken in another order (CSR segments and tree sums against index_add_
 # and einsum), so sums get a tolerance scaled by the largest entry; the
@@ -93,10 +121,33 @@ MIN_ERR_GATE_DEG = (0.5, 5.0)
 TOL_BLOCKS = 5e-3      # rtol for U, V, W, g_c, g_p (atol 1e-5 * max|ref|)
 TOL_COST = 1e-4        # relative, on the Huber cost sum (+1e-2 absolute)
 TOL_SCHUR = 1e-4       # rtol for off/rhs/wtv (atol 1e-4 * max|ref|)
+TOL_REDUCE = 1e-4      # rtol for cam_reduce (atol 1e-5 * max|ref|)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_done(n: int) -> None:
+    """Log phase n's wall time (since the previous phase ended)."""
+    now = time.perf_counter()
+    log(f"[phase {n}] done in {now - _PHASE_T0[0]:.1f} s")
+    _PHASE_T0[0] = now
+
+
+class RenderedFrames(dict):
+    """Frames of a RenderedSequence, rendered on first use and kept."""
+
+    def __init__(self, seq):
+        super().__init__()
+        self.seq = seq
+
+    def __missing__(self, i):
+        self[i] = self.seq.render_frame(i)
+        return self[i]
 
 
 def nvidia_smi_line() -> str:
@@ -336,11 +387,15 @@ def solve_launches(iters, pcg, calls=1, stats=True):
 def counted(label, fn, want):
     """Run one path with every launch count set to 0 just before it; read
     the counts just after and hold them to ``want`` (kernels it does not
-    name must stay at 0).  Returns (fn's result, the counts)."""
+    name must stay at 0; a callable ``want`` gets fn's result, for paths
+    whose counts follow from what they did).  Returns (fn's result, the
+    counts)."""
     bk.reset_launch_counts()
     hk.reset_launch_counts()
     out = fn()
     counts = {**bk.launch_counts(), **hk.launch_counts()}
+    if callable(want):
+        want = want(out)
     bad = {}
     for name, n in counts.items():
         w = want.get(name, 0)
@@ -563,57 +618,68 @@ def check_bootstrap(seq, images, dev):
     return fe, frames, m_idx, m_ok, out
 
 
-def landmark_arena(frames, m_idx, out, dev):
-    """A client-map-sized landmark arena (client_max_mps slots): the
-    bootstrap's good landmarks first, with the current frame's descriptors
-    (``tracking.initialize_map``), the rest seeded random descriptors; all
-    valid.  Returns (positions [M,3], descriptors [M,32], valid [M], n_good)."""
-    M = config.CapacityConfig().client_max_mps
-    good = out["good"] & out["success"]
-    n_good = int(good.sum())
+def reloc_tracker(seq, images, dev):
+    """A ``Tracker`` (SystemConfig defaults: 1,024 feature slots, a 16,384-
+    slot landmark arena) fed frames INIT_PAIR[0], INIT_PAIR[1], ... until it
+    bootstraps; its arena is then filled to capacity with seeded random-
+    descriptor landmarks behind the camera (alive, never in view), so that
+    relocalization brute-matches a client-map-sized arena."""
+    cfg = config.SystemConfig()
+    tr = Tracker(cfg=cfg, cam=Camera.from_config(seq.cam, dev), device=dev)
+    for i in (INIT_PAIR[0], *range(INIT_PAIR[1], RELOC_FRAME)):
+        tr.process_image(images[i], seq.gt_pose(i)[0])
+        if tr.state == OK:
+            break
+    if tr.state != OK:
+        raise AssertionError("the tracker did not bootstrap on the rendered frames")
+    m = tr.map
+    n, M = int(m.next_mp), m.mps.capacity
+    B = M - n
     g = torch.Generator(device="cpu").manual_seed(11)
-    desc = torch.randint(0, 256, (M, 32), generator=g, dtype=torch.uint8).to(dev)
-    pos = torch.zeros(M, 3, dtype=torch.float32, device=dev)
-    desc[:n_good] = frames[1].desc[m_idx[good]]
-    pos[:n_good] = out["X"][good]
-    return pos, desc, torch.ones(M, dtype=torch.bool, device=dev), n_good
+    i32 = dict(dtype=torch.int32, device=dev)
+    tr.map, _ = ms.add_mappoints(
+        m, n_new=torch.tensor(B, **i32),
+        pos=torch.tensor([0.0, 0.0, -100.0], device=dev).repeat(B, 1),
+        desc=torch.randint(0, 256, (B, 32), generator=g, dtype=torch.uint8).to(dev),
+        normal=torch.tensor([0.0, 0.0, 1.0], device=dev).repeat(B, 1),
+        min_dist=torch.zeros(B, device=dev), max_dist=torch.full((B,), float("inf"), device=dev),
+        ref_kf=torch.zeros(B, **i32), mp_ids=torch.arange(n, M, **i32),
+        client_id=torch.zeros(B, **i32), new_valid=torch.ones(B, dtype=torch.bool, device=dev))
+    return tr, n
 
 
-def relocalize(fe, frame, arena, generator):
-    """``Tracker._pnp_recover``'s steps: brute match against the arena,
-    RANSAC-PnP, pose refine on the inlier associations."""
-    pos, desc, valid, _ = arena
-    t_idx, _, okm = matching.match_brute(frame.desc, frame.valid, desc, valid,
-                                         th_dist=matching.TH_LOW, nn_ratio=0.75,
-                                         check_rotation=False)
-    X = pos[t_idx]
-    cam = fe.cam
-    res = pnp.ransac_pnp(X, frame.xy, okm, frame.sigma2, cam.fx, cam.fy, cam.cx, cam.cy,
-                         generator=generator)
-    R, t, inl, n_in = pose_opt.optimize_pose(res["R"], res["t"], X, frame.xy,
-                                             okm & res["inliers"], frame.sigma2,
-                                             cam.fx, cam.fy, cam.cx, cam.cy)
-    return okm, res, (R, t, inl, n_in)
+def relocalize(tr, frame):
+    """The tracker's relocalization of a frame after loss (staged: the
+    reference keyframe's covisibility neighborhood, then the whole arena)."""
+    tr.state = LOST
+    tr.enable_relocalization = True
+    return tr.process_frame(frame)
 
 
-def check_relocalization(fe, seq, arena, dev):
-    """Phase 7: a later frame relocalized against the arena; the tracker's
-    gates (>= 15 matches, >= 15 PnP inliers) and 1 degree of ground truth."""
+def check_relocalization(fe, seq, images, dev):
+    """Phase 7: a later frame relocalized by the Tracker against its filled
+    arena; the tracker's own gates (>= 15 matches, >= 15 PnP inliers, >= 30
+    local-map inliers) and 1 degree of ground truth."""
+    tr, n_map = reloc_tracker(seq, images, dev)
     frame = fe.frame(fe.features(RELOC_FRAME, False), RELOC_FRAME)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    (okm, res, (R, t, _, n_in)), counts = counted(
-        "relocalization", lambda: relocalize(fe, frame, arena, gen), {"hamming_top2": 1})
+    before = tr.stats["brute_matches"]
+    out, counts = counted("relocalization", lambda: relocalize(tr, frame),
+                          lambda _: {"hamming_top2": tr.stats["brute_matches"] - before})
+    if out is None:
+        raise AssertionError(f"relocalization failed: {tr.stats.get('reloc_fail')}")
     R_gt, t_gt = relative_gt(seq, INIT_PAIR[0], RELOC_FRAME)
-    e_rot, e_dir = rot_err_deg(R, R_gt), dir_err_deg(t, t_gt)
-    n_match, n_pnp = int(okm.sum()), int(res["n_inliers"])
-    ok = n_match >= 15 and bool(res["success"]) and n_pnp >= 15 and e_rot <= 1.0
-    log(f"  frame {RELOC_FRAME} vs {arena[1].shape[0]} landmarks ({arena[3]} from the "
-        f"bootstrap): {n_match} matches (>= 15), PnP inliers {n_pnp} (>= 15), refined "
-        f"inliers {int(n_in)}; rotation error {e_rot:.4f} deg (<= 1), translation direction "
-        f"error {e_dir:.4f} deg  {'ok' if ok else 'FAIL'}")
+    e_rot, e_dir = rot_err_deg(out.R_cw, R_gt), dir_err_deg(out.t_cw, t_gt)
+    tag = tr.stats["reloc_fail"].split(":")[0]
+    n_match, n_pnp = tr.stats[f"reloc_{tag}_match"], tr.stats[f"reloc_{tag}_pnp"]
+    ok = tr.state == OK and e_rot <= 1.0 and counts["hamming_top2"] >= 1
+    log(f"  frame {RELOC_FRAME} vs {tr.map.mps.capacity} landmark slots ({n_map} from the "
+        f"bootstrap): stage {tag}, {n_match} matches (>= 15), PnP inliers {n_pnp} (>= 15), "
+        f"local-map inliers {tr.stats[f'reloc_{tag}_lm']} (>= 30); rotation error "
+        f"{e_rot:.4f} deg (<= 1), translation direction error {e_dir:.4f} deg"
+        f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("relocalization failed its gates")
-    return frame, counts
+    return tr, frame, counts
 
 
 def walls_ms(fn, runs=5):
@@ -664,14 +730,16 @@ def hamming_timing(dev):
     return ms, plain_ms, bound_ms, bound_by
 
 
-def front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame):
+def front_end_timings(fe, frames, m_idx, m_ok, tr, reloc_frame):
     """Wall ms (5 runs after a warm-up, each ending in a sync) of each
-    front-end step at EuRoC width."""
+    front-end step at EuRoC width; the arena steps on the phase-7 tracker's
+    filled arena."""
     f1, f2 = frames
     cam = fe.cam
     gen = torch.Generator(device=fe.dev).manual_seed(2)
-    pos, desc, valid, _ = arena
-    t_idx, _, okm = matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, valid,
+    mps = tr.map.mps
+    pos, desc, alive = mps.pos, mps.desc, (mps.valid & ~mps.bad).contiguous()
+    t_idx, _, okm = matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, alive,
                                          check_rotation=False)
     steps = [
         ("orb.extract 752x480, 1024 features, 8 levels",
@@ -684,13 +752,13 @@ def front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame):
          lambda: initializer.initialize_two_view(f1.xy, f2.xy[m_idx], m_ok, cam.K,
                                                  generator=gen)),
         (f"match_brute 1024 x {desc.shape[0]}",
-         lambda: matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, valid,
+         lambda: matching.match_brute(reloc_frame.desc, reloc_frame.valid, desc, alive,
                                       check_rotation=False)),
         ("ransac_pnp, 200 hypotheses + refine",
          lambda: pnp.ransac_pnp(pos[t_idx], reloc_frame.xy, okm, reloc_frame.sigma2, cam.fx,
                                 cam.fy, cam.cx, cam.cy, generator=gen)),
-        ("relocalization: match_brute + ransac_pnp + pose refine",
-         lambda: relocalize(fe, reloc_frame, arena, gen)),
+        (f"relocalization against the whole arena ({desc.shape[0]} slots): Tracker._pnp_recover",
+         lambda: tr._pnp_recover(reloc_frame, alive, "global")),
     ]
     for label, fn in steps:
         log(f"  {label}: {spread(walls_ms(fn))}")
@@ -698,6 +766,263 @@ def front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame):
         busy = sum(e.self_device_time_total for e in device) / 1e3
         log(f"    profiled once: wall {wall:.3f} ms (profiler on), device busy {busy:.3f} ms "
             f"({busy / wall:.1%}), {sum(e.count for e in device)} device kernels")
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-10: cam_reduce, make_schur_matvec and the GBA profiling path.
+# ---------------------------------------------------------------------------
+
+
+def reduce_cases(dev):
+    """Phase-9 cam_reduce inputs {name: (y, ci, C)}: F=6 (CG vectors) and
+    F=42 (U|g_c rows) at the server-GBA (E=262,144, C=128) and stress
+    (E=1,048,576, C=1024) shapes with ids in range, and a ragged case with
+    ids -1..C+2 (those outside [0, C) must be dropped)."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cases = {}
+    for label, E, C in (("server", 262144, 128), ("stress", 1048576, 1024)):
+        ci = torch.randint(0, C, (E,), generator=g, dtype=torch.int32).to(dev)
+        for F in (6, 42):
+            cases[f"{label} E={E} C={C} F={F}"] = (torch.randn(E, F, generator=g).to(dev), ci, C)
+    ci = torch.randint(-3, 40, (99991,), generator=g, dtype=torch.int32).to(dev)
+    cases["ragged E=99991 C=37 F=13"] = (torch.randn(99991, 13, generator=g).to(dev), ci, 37)
+    return cases
+
+
+def check_cam_reduce(dev):
+    """cam_reduce against its plain version (the masked index_add_) on every
+    phase-9 case, and bit-identical on a rerun; returns the max abs error."""
+    err = 0.0
+    for name, (y, ci, C) in reduce_cases(dev).items():
+        out, again = bk.cam_reduce(y, ci, C), bk.cam_reduce(y, ci, C)
+        err = max(err, compare(f"cam_reduce {name}", out, bk.cam_reduce_plain(y, ci, C),
+                               TOL_REDUCE, 1e-5))
+        repeat = torch.equal(out, again)
+        dropped = int(((ci < 0) | (ci >= C)).sum())
+        if dropped:  # the clamping CSR of BA would have folded these in
+            clamped = bk.cam_reduce_plain(y, ci.clamp(0, C - 1), C)
+            if torch.allclose(out, clamped):
+                raise AssertionError("cam_reduce kept rows whose ids are out of range")
+        log(f"    repeatable {repeat}, rows dropped {dropped}  {'ok' if repeat else 'FAIL'}")
+        if not repeat:
+            raise AssertionError(f"cam_reduce {name}: rerun not bit-identical")
+    return err
+
+
+def schur_inputs(prob):
+    """(W, Vinv) of a problem's first normal-equation pass, damped at 1e-4."""
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    _, V, W, _, _, _ = bk.normal_blocks(*problem_args(prob), prob.cam_fixed,
+                                        prob.intr.contiguous(), HUBER, csr)
+    return W, ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=W.device))).contiguous()
+
+
+def check_schur_matvec(probs, rng):
+    """make_schur_matvec against schur_matvec_plain on each problem, bit-
+    identical on a rerun; returns the max abs error."""
+    err = 0.0
+    for label, prob in probs.items():
+        C = prob.R.shape[0]
+        W, Vinv = schur_inputs(prob)
+        v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=W.device)
+        off = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)
+        out, again = off(v), off(v)
+        err = max(err, compare(f"make_schur_matvec {label}", out,
+                               bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v),
+                               TOL_SCHUR, 1e-4))
+        if not torch.equal(out, again):
+            raise AssertionError(f"make_schur_matvec {label}: rerun not bit-identical")
+    return err
+
+
+def new_kernel_timings(stress, rng):
+    """(ms, plain_ms, bound_ms, bound_by, library_ms) of cam_reduce and
+    make_schur_matvec at the stress shape, the profiling path's inputs:
+    cam_reduce of an [E,6] array by the clipped ids (the CSR prebuilt, as
+    pcg_transitions builds it once), and the matvec's off."""
+    C, (P, K) = stress.R.shape[0], stress.cam_idx.shape
+    E = P * K
+    dev = stress.R.device
+    ci = stress.cam_idx.reshape(-1).clamp(0, C - 1).contiguous()
+    csr = bk.reduce_csr(ci, C)
+    y = torch.as_tensor(rng.standard_normal((E, 6)).astype(np.float32), device=dev)
+    ci_l = ci.long()
+    W, Vinv = schur_inputs(stress)
+    v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=dev)
+    off_k = bk.make_schur_matvec(W, Vinv, stress.cam_idx, C)
+    off_p = bk.schur_matvec_plain(W, Vinv, stress.cam_idx, C)
+    c6 = torch.empty(C, 6)
+    table = {
+        "cam_reduce": (lambda: bk.cam_reduce(y, ci, C, csr), lambda: bk.cam_reduce_plain(y, ci, C),
+                       nbytes(y, ci, c6), 1,
+                       lambda: torch.zeros(C, 6, device=dev).index_add_(0, ci_l, y)),
+        "schur_matvec": (lambda: off_k(v), lambda: off_p(v),
+                         nbytes(v, W, Vinv, stress.cam_idx, c6), 80, None),
+    }
+    out = {}
+    for name, (fk, fp, n_bytes, flops_per_obs, flib) in table.items():
+        ms_k, n_k = device_ms(fk, 100)
+        ev = event_ms(fk, 100)
+        ms_k = ms_k if ms_k is not None else ev
+        plain_ms = device_ms(fp, 20)[0]
+        lib_ms = device_ms(flib, 100)[0] if flib is not None else None
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops_per_obs * E / FP32_FLOP_PER_S * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out[name] = (ms_k, plain_ms, bound_ms, bound_by, lib_ms)
+        lib_s = (f"{lib_ms:.4f} (index_add_, float atomics: not deterministic)"
+                 if lib_ms is not None else "none")
+        log(f"  {name:<13} C={C} E={E}: kernel {ms_k:.4f} ms device, {n_k:g} device "
+            f"kernels/call ({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)  library {lib_s}")
+    return out
+
+
+def profile_want(res):
+    """The launches of profile_gba's calls: one normal_blocks to set up, and
+    per call of each component its own kernels."""
+    c = {k: v["calls"] for k, v in res.items()}
+    lm = c["lm_iter_full"]
+    return dict(
+        normal_blocks=1 + c["build_normal_blocks"] + lm,
+        reproj_cost=c["cost_eval"] + 2 * lm,
+        cam_broadcast=c["schur_matvec"] + c["cam_broadcast_f6"] + lm,
+        cam_reduce=c["schur_matvec"] + c["cam_reduce_f6"],
+        schur_matvec=c["fused_schur_matvec"],
+        schur_rhs=lm, schur_wtv=lm, schur_off=(lm, lm * (CG_ITERS + 1)),
+    )
+
+
+def check_profile(stress):
+    """Phase 10: profile_gba at the stress shape, counted; every component's
+    time printed.  Returns the counts."""
+    res, counts = counted("profile_gba", lambda: profile_gba(stress, reps=PROFILE_REPS),
+                          profile_want)
+    if not (counts["cam_reduce"] > 0 and counts["schur_matvec"] > 0):
+        raise AssertionError("the profiling path launched no cam_reduce / schur_matvec")
+    for name, r in res.items():
+        ev = f"{r['event_ms']:.4f}" if r["event_ms"] is not None else "n/a"
+        log(f"  {name:<20} {r['ms']:.4f} ms per call ({r['how']}; {ev} ms by CUDA events "
+            f"over back-to-back calls), {r['calls']} calls")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the single-agent client loop at full width.
+# ---------------------------------------------------------------------------
+
+
+def client_want(tr):
+    """The kernel launches of a Tracker run, from what the tracker counted:
+    each initialization's 20-iteration BA (160 camera slots: the PCG branch,
+    as in the reference), each local BA's iterations (40 camera slots: dense),
+    one hamming_top2 per brute match."""
+    s = tr.stats
+    init, lba, lba_it = s["init_calls"], s["local_ba_calls"], s["local_ba_iters"]
+    return dict(
+        normal_blocks=20 * init + lba_it,
+        reproj_cost=21 * init + lba_it + lba,
+        cam_broadcast=init + 2 * lba,  # final statistics; local BA's outlier pass
+        schur_rhs=20 * init, schur_wtv=20 * init,
+        schur_off=(20 * init, 20 * (CG_ITERS + 1) * init),
+        hamming_top2=s["brute_matches"],
+    )
+
+
+def profiled(fn):
+    """(fn's result, device events, wall ms) of one call under the profiler."""
+    box = []
+    device, wall = device_events(lambda: box.append(fn()))
+    return box[0], device, wall
+
+
+def kf_trajectory(m):
+    """(timestamps, camera centres) of the alive keyframes by keyframe id."""
+    alive = (m.kfs.valid & ~m.kfs.bad).cpu().numpy()
+    idx = np.where(alive)[0]
+    idx = idx[np.argsort(m.kfs.kf_id.cpu().numpy()[idx])]
+    sel = torch.as_tensor(idx, device=m.kfs.R_cw.device)
+    ctr = camera_centers(m.kfs.R_cw[sel], m.kfs.t_cw[sel]).cpu().numpy()
+    return m.kfs.timestamp.cpu().numpy()[idx], ctr
+
+
+def check_client_loop(dev, smi):
+    """Phase 11: Tracker.process_image over CLIENT_FRAMES rendered 752x480
+    corridor frames (rendered on the card before the loop), counted; gated
+    on LOST, frames tracked and keyframe ATE.  Returns the counts."""
+    cfg = config.rendered_ci_config(factor=1.0)
+    seq = RenderedSequence(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22),
+                           cam=cfg.camera, backend="torch", device=dev)
+    t0 = time.perf_counter()
+    images = [seq.render_frame(i) for i in range(CLIENT_FRAMES)]
+    torch.cuda.synchronize()
+    log(f"  rendered {CLIENT_FRAMES} frames {tuple(images[0].shape)} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stamps = [seq.gt_pose(i)[0] for i in range(CLIENT_FRAMES)]
+    tr = Tracker(cfg=cfg, cam=Camera.from_config(cfg.camera, dev), device=dev)
+    walls, prof = [], []
+
+    def drive():
+        tracked = 0
+        for i in range(CLIENT_FRAMES):
+            if i in PROFILED_FRAMES:
+                out, device, wall = profiled(lambda: tr.process_image(images[i], stamps[i]))
+                prof.append((i, device, wall, tr.stats["path"]))
+            else:
+                t1 = time.perf_counter()
+                out = tr.process_image(images[i], stamps[i])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            tracked += out is not None
+        return tracked
+
+    t0 = time.perf_counter()
+    reads0 = tr.stats["host_reads"]
+    tracked, counts = counted("client loop", drive, lambda _: client_want(tr))
+    loop_s = time.perf_counter() - t0
+    if counts["hamming_top2"] < 1:
+        raise AssertionError("the client loop never tracked against its reference keyframe")
+    ts, est = kf_trajectory(tr.map)
+    gt_ts, gt_pos, _ = seq.ground_truth()
+    gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
+    rmse, _ = ate_rmse(est, gt, align="sim3")
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    gate = max(0.010 * span + 0.02, 2.0 * JAX_CLIENT_ATE_M)
+    ok = tr.state != LOST and tracked >= 0.8 * CLIENT_FRAMES and rmse < gate
+    s = tr.stats
+    log(f"  {tracked}/{CLIENT_FRAMES} frames tracked (>= {0.8 * CLIENT_FRAMES:.0f}), state "
+        f"{['NOT_INITIALIZED', 'OK', 'LOST'][tr.state]} (not LOST), {len(ts)} keyframes "
+        f"({s['kf_created']} created), {s['mp_created']} landmarks created; keyframe ATE "
+        f"{rmse:.4f} m over a {span:.3f} m span (gate {gate:.4f} m = max(0.010 span + 0.02, "
+        f"2 x the JAX package's {JAX_CLIENT_ATE_M:.4f} m))  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the client loop failed its gates")
+    med = statistics.median(walls)
+    log(f"[times] client loop, {smi}: {loop_s:.1f} s for {CLIENT_FRAMES} frames; per-frame wall "
+        f"(unprofiled frames, each ending in a sync) median {med:.3f} ms, min {min(walls):.3f}, "
+        f"max {max(walls):.3f}, {sum(w <= CAMERA_PERIOD_MS for w in walls)}/{len(walls)} "
+        f"within the {CAMERA_PERIOD_MS:g} ms camera period; host reads "
+        f"{s['host_reads'] - reads0} ({(s['host_reads'] - reads0) / CLIENT_FRAMES:.1f} per "
+        f"frame); initializations {s['init_calls']}, local BAs {s['local_ba_calls']}, "
+        f"brute matches {s['brute_matches']}")
+    for i, device, wall, path in prof:
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        log(f"  profiled frame {i} (path {path}): wall {wall:.3f} ms (profiler on), device busy "
+            f"{busy:.3f} ms ({busy / wall:.1%}), {sum(e.count for e in device)} device kernels")
+    last_kf = int(torch.max(torch.where(tr.map.kfs.valid & ~tr.map.kfs.bad,
+                                        torch.arange(tr.map.kfs.capacity, device=dev), -1)))
+    frame = tr.last_frame
+    for label, fn in (
+            (f"track_local_map ({tr.map.mps.capacity} landmark slots x {frame.n_feat} features)",
+             lambda: tracking.track_local_map(tr.map, frame, tr.cam, cfg)),
+            (f"local_ba (15 iterations, keyframe slot {last_kf})",
+             lambda: mapping.local_ba(tr.map, last_kf, tr.cam, cfg))):
+        log(f"  {label}: {spread(walls_ms(fn, 3))}")
+        _, device, wall = profiled(fn)
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        log(f"    profiled once: wall {wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+            f"{sum(e.count for e in device)} device kernels")
+    return counts
 
 
 def main() -> int:
@@ -720,6 +1045,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {line.strip()}")
+    phase_done(1)
 
     # -- phase 2: kernels against their plain versions ---------------------
     rng = np.random.default_rng(0)
@@ -727,12 +1053,18 @@ def main() -> int:
     errs, inputs = check_kernels(bench, rng, "bench shapes")
     check_kernels(convert.ba_problem_from_numpy(problems.ragged_problem_arrays(), dev),
                   rng, "ragged")
+    # the client's local-BA widths: C=40 cameras, P=4096 landmarks, K=16
+    # (rendered_ci_config) and K=32 (the default max_obs_per_mp) slots
+    for K in (16, 32):
+        check_kernels(problems.make_problem(C=40, P=4096, K=K, device=dev), rng,
+                      f"local BA K={K}")
     Cr = 37
     v = torch.as_tensor(rng.standard_normal((Cr, 5)).astype(np.float32), device=dev)
     ci = torch.as_tensor(rng.integers(-3, Cr + 3, 999).astype(np.int32), device=dev)
     compare("cam_broadcast.oob", bk.cam_broadcast(v, ci), bk.cam_broadcast_plain(v, ci),
             0.0, 0.0)
     log("[kernels] all kernels agree with their plain versions")
+    phase_done(2)
 
     # -- phase 3: the slice, through the entry points, counted per path ----
     def start_cost(prob):
@@ -748,6 +1080,11 @@ def main() -> int:
     local_cost0 = start_cost(local)
     counted("local BA", lambda: check_solve(
         "C=70 P=4096 K=8 iters=20", local, 20, local_cost0), solve_launches(20, pcg=False))
+    for K in (16, 32):
+        wide = problems.make_problem(C=40, P=4096, K=K, device=dev)
+        wide_cost0 = start_cost(wide)
+        counted(f"local BA K={K}", lambda: check_solve(
+            f"C=40 P=4096 K={K} iters=15", wide, 15, wide_cost0), solve_launches(15, pcg=False))
 
     log("[slice] interrupted GBA: 3 chunks x 4 iterations against 12 at once")
     (_, _, _, cost_mono, _), mono = counted(
@@ -796,6 +1133,9 @@ def main() -> int:
     agree_with_cpu("dense C=40 P=700 K=4", problems.small_ba_problem_arrays(), 20)
     agree_with_cpu("pcg C=100 P=1024 K=4",
                    problems.arc_problem_arrays(C=100, P=1024, K=4), 20)
+    agree_with_cpu("dense C=40 P=700 K=16",
+                   problems.small_ba_problem_arrays(P=700, K=16, C=40), 15)
+    phase_done(3)
 
     # -- phase 4: times ------------------------------------------------------
     log(f"[times] kernels at bench shapes; {smi}")
@@ -809,44 +1149,81 @@ def main() -> int:
         f"kernels {kernel_ms:.2f} ms of it by device time ({gba['schur_off'] - 20} CG "
         f"steps, one host sync each)")
     profile_solve(bench)
+    phase_done(4)
 
     # -- phase 5: hamming_top2 against its plain version --------------------
     log("[kernels] hamming_top2 against its plain version")
     hamming_err = check_hamming(dev)
+    phase_done(5)
 
     # -- phase 6: the client bootstrap at 752x480 ----------------------------
     t0 = time.perf_counter()
     seq = RenderedSequence(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22),
                            cam=config.CameraConfig())
-    images = {i: seq.render_frame(i) for i in (*INIT_PAIR, RELOC_FRAME)}
+    images = RenderedFrames(seq)
+    for i in (*INIT_PAIR, RELOC_FRAME):
+        images[i]
     log(f"[front-end] rendered frames {sorted(images)} at 752x480 in "
         f"{time.perf_counter() - t0:.1f} s")
     log("[front-end] bootstrap: extract -> build_frame -> search_for_initialization -> "
         "initialize_two_view (no kernel on this path)")
     fe, frames, m_idx, m_ok, out = check_bootstrap(seq, images, dev)
+    phase_done(6)
 
-    # -- phase 7: global relocalization --------------------------------------
-    log("[front-end] relocalization: match_brute (hamming_top2) -> ransac_pnp -> refine")
-    arena = landmark_arena(frames, m_idx, out, dev)
-    reloc_frame, reloc = check_relocalization(fe, seq, arena, dev)
+    # -- phase 7: relocalization through the Tracker --------------------------
+    log("[front-end] relocalization: Tracker (LOST) -> match_brute (hamming_top2) -> "
+        "ransac_pnp -> refine -> local-map gate")
+    reloc_tr, reloc_frame, reloc = check_relocalization(fe, seq, images, dev)
+    phase_done(7)
 
     # -- phase 8: front-end times ----------------------------------------------
     log(f"[times] front-end at 752x480; {smi}")
     top2_times = hamming_timing(dev)
-    front_end_timings(fe, frames, m_idx, m_ok, arena, reloc_frame)
+    front_end_timings(fe, frames, m_idx, m_ok, reloc_tr, reloc_frame)
+    phase_done(8)
+
+    # -- phase 9: cam_reduce and make_schur_matvec against their plain versions
+    log("[kernels] cam_reduce and make_schur_matvec against their plain versions")
+    stress = convert.ba_problem_from_numpy(problems.stress_problem_arrays(), dev)
+    reduce_err = check_cam_reduce(dev)
+    matvec_err = check_schur_matvec({"server GBA C=128 P=32768 K=8": bench,
+                                     "stress C=1024 P=131072 K=8": stress}, rng)
+    log(f"[times] cam_reduce and make_schur_matvec at the stress shape; {smi}")
+    new_times = new_kernel_timings(stress, rng)
+    phase_done(9)
+
+    # -- phase 10: the GBA profiling path ---------------------------------------
+    log(f"[gba-profile] profile_gba at the stress shape (C=1024, P=131072, K=8); {smi}")
+    prof_counts = check_profile(stress)
+    del stress
+    torch.cuda.empty_cache()
+    phase_done(10)
+
+    # -- phase 11: the client loop at full width --------------------------------
+    log("[client] Tracker.process_image over the rendered corridor at 752x480, "
+        "rendered_ci_config(1.0)")
+    check_client_loop(dev, smi)
+    phase_done(11)
 
     kernels = []
     for name, replaces, _ in KERNELS:
-        ms, plain_ms, bound_ms, bound_by, lib_ms = times[name]
+        t_ms, plain_ms, bound_ms, bound_by, lib_ms = times[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=gba[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            launches=gba[name], max_abs_err=errs[name], ms=t_ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-    ms, plain_ms, bound_ms, bound_by = top2_times
+    t_ms, plain_ms, bound_ms, bound_by = top2_times
     kernels.append(dict(
         name="hamming_top2", route="cuda", source=HAMMING_SOURCE, replaces=f"{PALLAS}:121",
-        launches=reloc["hamming_top2"], max_abs_err=hamming_err, ms=ms, plain_ms=plain_ms,
+        launches=reloc["hamming_top2"], max_abs_err=hamming_err, ms=t_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    for name, replaces, err in (("cam_reduce", f"{PALLAS}:284", reduce_err),
+                                ("schur_matvec", f"{PALLAS}:496", matvec_err)):
+        t_ms, plain_ms, bound_ms, bound_by, lib_ms = new_times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=prof_counts[name], max_abs_err=err, ms=t_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -154,6 +154,73 @@ def test_cam_broadcast_matches_pallas_interpret():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("E,C,F", [(2048, 64, 6), (1000, 130, 42), (777, 50, 13)])
+def test_cam_reduce_drops_out_of_range_like_reference(E, C, F):
+    """Ids -1 and >= C are dropped (cam_csr would clamp them into camera 0
+    and C-1); tolerance 1e-5 relative to the largest entry."""
+    rng = np.random.RandomState(E + F)
+    y = rng.randn(E, F).astype(np.float32)
+    ci = rng.randint(-2, C + 3, E).astype(np.int32)
+    ours = bk.cam_reduce(torch.as_tensor(y), torch.as_tensor(ci), C).numpy()
+    ref = np.asarray(pk.cam_reduce_reference(jnp.asarray(y), jnp.asarray(ci), C))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    clamped = bk.cam_reduce(torch.as_tensor(y), torch.as_tensor(np.clip(ci, 0, C - 1)), C)
+    assert not np.allclose(clamped.numpy(), ref)
+
+
+def test_cam_reduce_matches_pallas_interpret():
+    rng = np.random.RandomState(9)
+    y = rng.randn(1500, 42).astype(np.float32)
+    ci = rng.randint(-1, 131, 1500).astype(np.int32)
+    ours = bk.cam_reduce(torch.as_tensor(y), torch.as_tensor(ci), 130).numpy()
+    ref = np.asarray(pk.cam_reduce(jnp.asarray(y), jnp.asarray(ci), 130, exact=True,
+                                   interpret=True))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def test_reduce_csr_drop_bucket():
+    ci = torch.tensor([2, -1, 0, 5, 2, 1, 3], dtype=torch.int32)
+    csr = bk.reduce_csr(ci, 3)
+    assert csr.offsets.tolist() == [0, 1, 2, 4]  # 4 rows kept, ids -1, 5, 3 dropped
+    kept = csr.pos[torch.tensor([2, 5, 0, 4])].tolist()
+    assert kept == [0, 1, 2, 3] and min(csr.pos[torch.tensor([1, 3, 6])].tolist()) >= 4
+
+
+@pytest.mark.parametrize("P,K,C,interpret", [(300, 8, 70, False), (257, 4, 33, True)])
+def test_make_schur_matvec_matches_reference(P, K, C, interpret):
+    W, Vinv, ci, v, _ = _schur_inputs(P, K, C)
+    ci[0, :3] = [-1, C, C + 5]  # out of range: clipped, as the reference clips
+    off = bk.make_schur_matvec(torch.as_tensor(W), torch.as_tensor(Vinv), torch.as_tensor(ci), C)
+    if interpret:
+        ref = pk.make_schur_matvec(jnp.asarray(W), jnp.asarray(Vinv), jnp.asarray(ci), C,
+                                   exact=True, interpret=True)(jnp.asarray(v))
+    else:
+        ref = pk.schur_matvec_reference(jnp.asarray(W), jnp.asarray(Vinv), jnp.asarray(ci),
+                                        C)(jnp.asarray(v))
+    np.testing.assert_allclose(off(torch.as_tensor(v)).numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_pcg_transitions_match_reference():
+    from ccm_slam_tpu_torch.solvers import ba as tba
+
+    rng = np.random.RandomState(4)
+    cam_idx = rng.randint(-1, 41, (200, 4)).astype(np.int32)
+    broadcast, reduce = tba.pcg_transitions(torch.as_tensor(cam_idx), 40)
+    jb, jr = jba._pcg_transitions_pallas(jnp.asarray(cam_idx), 40)
+    v = rng.randn(40, 6).astype(np.float32)
+    y = rng.randn(800, 6).astype(np.float32)
+    np.testing.assert_allclose(broadcast(torch.as_tensor(v)).numpy(),
+                               np.asarray(pk.cam_broadcast_reference(
+                                   jnp.asarray(v), jnp.clip(jnp.asarray(cam_idx).reshape(-1), 0,
+                                                            39), 40)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(reduce(torch.as_tensor(y)).numpy(),
+                               np.asarray(pk.cam_reduce_reference(
+                                   jnp.asarray(y), jnp.clip(jnp.asarray(cam_idx).reshape(-1), 0,
+                                                            39), 40)), rtol=1e-5, atol=1e-5)
+    assert callable(jb) and callable(jr)
+
+
 def test_cam_csr_groups_observations_by_camera():
     rng = np.random.RandomState(0)
     cam_idx = rng.randint(-2, 12, (50, 3)).astype(np.int32)
@@ -176,6 +243,8 @@ def test_wrappers_leave_launch_counts_at_zero_on_cpu():
     off, rhs, wtv = bk.schur_ops(W, V.contiguous(), bk.cam_csr(prob.cam_idx, 7))
     off(torch.zeros(7, 6)), rhs(torch.zeros(100, 3)), wtv(torch.zeros(7, 6))
     bk.cam_broadcast(torch.zeros(7, 12), prob.cam_idx.reshape(-1).contiguous())
+    bk.cam_reduce(torch.zeros(400, 6), prob.cam_idx.reshape(-1).contiguous(), 7)
+    bk.make_schur_matvec(W, V.contiguous(), prob.cam_idx, 7)(torch.zeros(7, 6))
     assert all(n == 0 for n in bk.launch_counts().values()), bk.launch_counts()
 
 

@@ -85,6 +85,78 @@ def test_cam_broadcast_kernel():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("E,C,F", [(262144, 128, 6), (262144, 128, 42), (9999, 37, 6)])
+def test_cam_reduce_kernel(E, C, F):
+    """Against the masked index_add_; ids -1 and >= C dropped; bit-identical
+    on a rerun (no atomics)."""
+    dev = card()
+    g = torch.Generator(device="cpu").manual_seed(E + F)
+    y = torch.randn(E, F, generator=g).to(dev)
+    ci = torch.randint(-2, C + 3, (E,), generator=g, dtype=torch.int32).to(dev)
+    bk.reset_launch_counts()
+    ours = bk.cam_reduce(y, ci, C)
+    again = bk.cam_reduce(y, ci, C)
+    assert bk.launch_counts()["cam_reduce"] == 2
+    close(ours, bk.cam_reduce_plain(y, ci, C), 1e-4, 1e-5)
+    assert torch.equal(ours, again)
+
+
+@pytest.mark.parametrize("name", ["bench", "ragged"])
+def test_make_schur_matvec_kernel(name):
+    dev = card()
+    prob = problem(name, dev)
+    C = prob.R.shape[0]
+    csr = bk.cam_csr(prob.cam_idx, C)
+    _, V, W, _, _, _ = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    Vinv = ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=dev))).contiguous()
+    v = torch.randn(C, 6, generator=torch.Generator(device="cpu").manual_seed(2)).to(dev)
+    bk.reset_launch_counts()
+    out = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)(v)
+    assert bk.launch_counts()["schur_matvec"] == 1 and bk.launch_counts()["schur_off"] == 0
+    close(out, bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v), 1e-4, 1e-4)
+
+
+def test_tracker_step_on_card_matches_cpu():
+    """The CPU tracker runs the synthetic arc to a tracked state; its state
+    is copied to the card and both process the next frame: same path, same
+    associations, poses within 1e-3."""
+    import numpy as np
+
+    from test_torch_client import make_trajectory, make_world, render_frame, small_config
+    from ccm_slam_tpu_torch.config import CameraConfig
+    from ccm_slam_tpu_torch.runtime.tracker import OK, Tracker
+    from ccm_slam_tpu_torch.utils.camera import Camera
+
+    dev = card()
+    cfg = small_config()
+    cam_cfg = CameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0)
+    cpu = Tracker(cfg=cfg, cam=Camera.from_config(cam_cfg, "cpu"), device="cpu")
+    points, desc_w = make_world()
+    poses = make_trajectory(60)
+    rng = np.random.RandomState(7)
+    frames = [render_frame(points, desc_w, T, cpu.cam, rng, i * 0.05)
+              for i, T in enumerate(poses[:12])]
+    for f in frames[:11]:
+        cpu.process_frame(f)
+    assert cpu.state == OK and cpu.has_velocity
+
+    def to_card(f):
+        return convert.frame_from_numpy(convert.frame_fields(f), dev)
+
+    gpu = Tracker(cfg=cfg, cam=Camera.from_config(cam_cfg, dev), device=dev, state=OK,
+                  map=convert.map_state_from_numpy(convert.map_state_to_numpy(cpu.map), dev),
+                  last_frame=to_card(cpu.last_frame), vel_R=cpu.vel_R.to(dev),
+                  vel_t=cpu.vel_t.to(dev), has_velocity=True, ref_kf=cpu.ref_kf,
+                  next_kf_id=cpu.next_kf_id, frames_since_kf=cpu.frames_since_kf,
+                  kfs_since_init=cpu.kfs_since_init)
+    out_c = cpu.process_frame(frames[11])
+    out_g = gpu.process_frame(to_card(frames[11]))
+    assert cpu.stats["path"] == gpu.stats["path"]
+    assert torch.equal(out_c.mp, out_g.mp.cpu())
+    torch.testing.assert_close(out_g.R_cw.cpu(), out_c.R_cw, rtol=0, atol=1e-3)
+    torch.testing.assert_close(out_g.t_cw.cpu(), out_c.t_cw, rtol=0, atol=1e-3)
+
+
 def test_kernels_are_repeatable():
     """No float atomics: the same inputs give bit-identical outputs."""
     prob = problem("bench", card())

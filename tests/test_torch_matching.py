@@ -50,8 +50,10 @@ def test_pack_unpack_and_popcount():
     d = rand_desc(rng, 16)
     np.testing.assert_array_equal(th.unpack_bits(T(d)).numpy(), np.asarray(jh.unpack_bits(d)))
     np.testing.assert_array_equal(th.pack_bits(th.unpack_bits(T(d))).numpy(), d)
-    x = np.arange(256, dtype=np.uint8)
-    np.testing.assert_array_equal(th.popcount8(T(x)).numpy(), np.unpackbits(x[:, None], 1).sum(1))
+    x = np.concatenate([rng.integers(-2**63, 2**63 - 1, 1000, dtype=np.int64, endpoint=True),
+                        np.array([0, -1, 1, -2**63, 2**63 - 1], np.int64)])
+    np.testing.assert_array_equal(th.popcount64(T(x)).numpy(),
+                                  np.unpackbits(x.view(np.uint8).reshape(-1, 8), 1).sum(1))
 
 
 def test_hamming_cross_exact():

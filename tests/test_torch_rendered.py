@@ -47,3 +47,28 @@ def test_corridor_frames_and_ground_truth_match():
     np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-6)
     with pytest.raises(ValueError):
         tr.RenderedSequence(world="maze").render_frame(0)
+
+
+def test_torch_raycaster_matches_jax_raycaster_and_numpy_frames():
+    """The torch backend against the reference's XLA raycaster (before the
+    sensor model: max 0.05, mean 1e-3 grey levels) and against the numpy
+    frames (after 8-bit quantization: at most 0.5% of pixels off, by 1)."""
+    import torch
+
+    kw = dict(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22))
+    cam = scaled_camera(factor=0.15)
+    ours = tr.RenderedSequence(cam=cam, backend="torch", device="cpu", **kw)
+    num = tr.RenderedSequence(cam=cam, **kw)
+    planes, traj, rays = num._setup()
+    run_t = tr.make_raycaster_torch(planes, rays, 2, "cpu")
+    run_j = jr.make_raycaster_jax(planes, rays, ss=2)
+    for i in (0, 6, 150):
+        _, o, R = traj[i]
+        d = np.abs(run_t(R, o).numpy() - np.asarray(run_j(R, o)))
+        assert d.max() <= 0.05 and d.mean() <= 1e-3, (i, d.max(), d.mean())
+        img = ours.render_frame(i)
+        assert isinstance(img, torch.Tensor) and img.dtype == torch.float32
+        diff = np.abs(img.numpy() - num.render_frame(i))
+        assert diff.max() <= 1.0 and (diff > 0).mean() <= 0.005, (i, (diff > 0).mean())
+    with pytest.raises(ValueError):
+        tr.RenderedSequence(cam=cam, backend="opengl", **kw).render_frame(0)
