@@ -18,31 +18,59 @@
 // per observation at most, against 24-170 bytes moved, so all sit far below
 // the card's ~20 flop/byte fp32 ridge.  At the server-GBA shapes (C=128
 // cameras, P=32768 landmarks, K=8 slots: E=262144 observations) one call
-// moves 5-25 MB, which is 1.5-7.6 us at 3.35 TB/s -- below the cost of a
-// launch.  So launch overhead and the solver's per-CG-step host sync, not
-// bandwidth, are expected to set the pace; the kernels are kept simple and
-// right first.
+// moves 5-25 MB, which is 1.5-7.6 us at 3.35 TB/s, near the cost of a
+// launch; at the client's local-BA shape (C=40, P=4096, K=16) far less.
 //
-// What the design does about it:
-//  * One pass per observation: residual, robust weight, Jacobians and block
-//    products stay in registers; only the products leave the SM.
-//  * No float atomics anywhere, so every sum is taken in a fixed order and
-//    results repeat bit for bit run to run (LM's accept test
-//    `cost_new < cost` must not flip between runs):
-//      - per-landmark sums (V, g_p, the point side of off, wtv): one thread
-//        per landmark loops over its K contiguous slots;
-//      - per-camera sums (U, g_c, the camera side of off, rhs): a camera CSR
-//        (observations stably sorted by camera, built once per solve since
-//        cam_idx is constant across LM and CG iterations).  The per-
-//        observation pass writes its row straight into the observation's
-//        sorted slot `pos[e]`, so one segment kernel reads each camera's rows
-//        contiguously and sums them in a fixed order;
-//      - the cost: per-block tree sums, then one block sums the partials in
-//        a fixed order.
-//  * The TPU layout tricks (factored hi/lo one-hot, k-major lane packing,
-//    (8,128) output blocks, the K<=16 cap) are not carried over: on Hopper
-//    a thread gathers its camera's 12 floats directly (L1/L2 resident: the
-//    camera table is 6 KB at C=128).
+// No float atomics anywhere, so every sum is taken in a fixed order and
+// results repeat bit for bit run to run (LM's accept test
+// `cost_new < cost` must not flip between runs):
+//  - per-landmark sums (V, g_p, the point side of off, wtv) run over each
+//    landmark's K contiguous slots in slot order;
+//  - per-camera sums go through a camera CSR (observations stably sorted
+//    by camera, built once per solve since cam_idx is constant across LM
+//    and CG iterations): camera c owns sorted slots offsets[c]..offsets[c+1],
+//    `order[j]` is the observation in slot j and `pos[e]` its inverse.  The
+//    Schur kernels write each observation's row to its slot pos[e] for
+//    seg_sum to add in slot order; normal_blocks' camera side and
+//    cam_reduce read the slots through `order`, chunk by chunk, and add the
+//    chunk sums in chunk order;
+//  - costs: per-block tree sums, then one block sums the partials in order.
+//
+// normal_blocks (three kernels: point, camera, finish).  Its byte bound is
+// 0.0076 ms at the server-GBA shape and 0.0018 ms at the local-BA shape;
+// it runs in ~0.033 and ~0.014 ms (H100 80GB HBM3, 700 W, chip_smoke.py):
+//  * point kernel: one thread per OBSERVATION (256-thread blocks of
+//    floor(256/K) whole landmarks, so a landmark never straddles two
+//    blocks), which fills the card even at local BA's 65,536 observations.
+//    W is staged as the block's [obs,18] tile in shared memory and written
+//    out contiguously; V, g_p and the cost go through shared memory and one
+//    thread per (landmark, entry) sums its K slots in slot order.  Bound by
+//    the bytes it moves (~54% of the HBM rate at E=262144).
+//  * camera kernel: one block per chunk (each camera's CSR segment cut into
+//    pieces of `chunk` slots, so a camera with many observations -- local
+//    BA's padding slots all clamp to camera 0 -- still gets many blocks)
+//    walks its sorted slots through `order` and recomputes what the camera
+//    side needs (camera pose, X[p], uv, sigma2, flags: ~30 B per
+//    observation, L2-resident after the point kernel), so no [E,42] row
+//    scratch is written and read back.  Each thread sums its slots' U
+//    (upper triangle, 21) and g_c (6) in slot order; warp shuffle trees and
+//    an in-order sum over warps combine them.  Bound by the latency of the
+//    gathers through `order`.  The finish kernel adds each camera's chunk
+//    rows in chunk order and sums the point kernel's cost partials.
+//
+// cam_reduce (two kernels: chunk sums, then their combination).  Its byte
+// bound at E=1,048,576, C=1024, F=6 is 0.0088 ms; it runs in ~0.023 ms,
+// ahead of index_add_ (~0.046 ms, float atomics).  One block per chunk of a
+// camera's segment gathers y[order[j]] for its slots in ascending j --
+// lanes cover consecutive columns of consecutive rows, so a warp reads
+// whole F-wide rows -- and a fixed tree combines the rows' column sums; no
+// scratch but one F-float row per chunk.  Rows whose id is outside [0, C)
+// sit in the CSR's drop bucket (slots >= offsets[C]) and are never read.
+//
+// The TPU layout tricks (factored hi/lo one-hot, k-major lane packing,
+// (8,128) output blocks, the K<=16 cap) are not carried over: on Hopper a
+// thread gathers its camera's 12 floats directly (L1/L2 resident: the
+// camera table is 6 KB at C=128).
 //
 // Interface: plain C, every pointer a device pointer into a contiguous
 // tensor allocated by the caller (outputs and scratch included), bool masks
@@ -54,9 +82,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // per-landmark kernels and the partial sum
+constexpr int kThreads = 256;   // per-landmark kernels, partial sums, camera-major kernels
 constexpr int kSegThreads = 512;
-constexpr int kRowF = 42;       // per-observation U (36) + g_c (6) row
+constexpr int kRowF = 42;       // a camera's U (36) + g_c (6) row
+constexpr int kWStride = 19;    // shared W tile row: 18 floats, odd stride (no bank conflicts)
+constexpr int kVStride = 13;    // shared V (9) | g_p (3) | rho row
+constexpr int kCamAcc = 27;     // U upper triangle (21) + g_c (6)
 
 __device__ __forceinline__ int clamp_cam(int c, int C) {
   return c < 0 ? 0 : (c >= C ? C - 1 : c);
@@ -123,6 +154,32 @@ __device__ __forceinline__ Obs observe(const float* __restrict__ R,
   o.w = w_conf * huber_weight(o.chi2, delta);
   o.rho = huber_rho(o.chi2, delta);
   return o;
+}
+
+// Closed-form pose and point Jacobians of one observation
+// (solvers/reproj.pose_point_jacobians), gated as the reference gates them:
+// zero where w <= 0, and the pose rows also zero for a fixed camera.
+__device__ __forceinline__ void jacobians(const float* __restrict__ Rc, const Obs& o, float fx,
+                                          float fy, bool cam_fixed, float Jc0[6], float Jc1[6],
+                                          float Jp0[3], float Jp1[3]) {
+  const float iz = 1.0f / z_safe(o.z);
+  const float iz2 = iz * iz;
+  const float a = fx * iz, b = -fx * o.x * iz2;
+  const float cc = fy * iz, d = -fy * o.y * iz2;
+  const float gate = o.w > 0.0f ? 1.0f : 0.0f;
+  const float pose_gate = gate * (cam_fixed ? 0.0f : 1.0f);
+  const float j0[6] = {a, 0.0f, b, b * o.y, a * o.z - b * o.x, -a * o.y};
+  const float j1[6] = {0.0f, cc, d, -cc * o.z + d * o.y, -d * o.x, cc * o.x};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    Jc0[i] = j0[i] * pose_gate;
+    Jc1[i] = j1[i] * pose_gate;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    Jp0[i] = (a * Rc[i] + b * Rc[6 + i]) * gate;
+    Jp1[i] = (cc * Rc[3 + i] + d * Rc[6 + i]) * gate;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -204,93 +261,193 @@ void launch_seg_sum(const float* rows, const int* offsets, int C, int F, float* 
 int n_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 // ---------------------------------------------------------------------------
-// Normal equations: one thread per landmark.  Per observation: residual ->
-// Huber weight -> closed-form pose and point Jacobians (zeroed for w = 0;
-// pose part zeroed for fixed cameras) -> W_e = w Jc^T Jp, and the row
-// (w Jc^T Jc, -w Jc^T r) written to the observation's camera-sorted slot.
-// V and g_p accumulate over the K slots in registers.
+// Normal equations, point side: one thread per observation.  A block of
+// blockDim threads holds L = blockDim / K whole landmarks (thread l*K + k is
+// slot k of the block's landmark l).  Per observation: residual -> Huber
+// weight -> Jacobians -> W_e = w Jc^T Jp (staged in shared memory, then
+// written out contiguously), V_e = w Jp^T Jp, g_p,e = -w Jp^T r and rho
+// (staged; one thread per (landmark, entry) sums its K slots in order).
 // ---------------------------------------------------------------------------
-__global__ void normal_blocks_kernel(const float* __restrict__ R, const float* __restrict__ t,
-                                     const float* __restrict__ X,
-                                     const uint8_t* __restrict__ point_valid,
-                                     const int* __restrict__ cam_idx,
-                                     const float* __restrict__ uv,
-                                     const float* __restrict__ sigma2,
-                                     const uint8_t* __restrict__ obs_valid,
-                                     const uint8_t* __restrict__ cam_fixed,
-                                     const float* __restrict__ intr, int C, int P, int K,
-                                     float delta, const int* __restrict__ pos,
-                                     float* __restrict__ W, float* __restrict__ V,
-                                     float* __restrict__ g_p, float* __restrict__ rows,
-                                     float* __restrict__ partials) {
-  __shared__ float sh[kThreads];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  float cost = 0.0f;
-  if (p < P) {
-    const float fx = intr[0], fy = intr[1];
-    const float X0 = X[3 * p], X1 = X[3 * p + 1], X2 = X[3 * p + 2];
-    const bool point_ok = point_valid[p];
-    float Vp[9];
-    float gp[3];
+__global__ void normal_blocks_point_kernel(const float* __restrict__ R,
+                                           const float* __restrict__ t,
+                                           const float* __restrict__ X,
+                                           const uint8_t* __restrict__ point_valid,
+                                           const int* __restrict__ cam_idx,
+                                           const float* __restrict__ uv,
+                                           const float* __restrict__ sigma2,
+                                           const uint8_t* __restrict__ obs_valid,
+                                           const uint8_t* __restrict__ cam_fixed,
+                                           const float* __restrict__ intr, int C, int P, int K,
+                                           int L, float delta, float* __restrict__ W,
+                                           float* __restrict__ V, float* __restrict__ g_p,
+                                           float* __restrict__ partials) {
+  extern __shared__ float smem[];
+  float* shW = smem;                            // [blockDim][kWStride]
+  float* shV = smem + blockDim.x * kWStride;    // [blockDim][kVStride]
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * L;
+  const int nl = min(L, P - p0);                // landmarks in this block
+  const int l = tid / K;
+  float rho = 0.0f;
+  if (l < nl) {
+    const int p = p0 + l;
+    const int e = p * K + (tid - l * K);
+    const int c = clamp_cam(cam_idx[e], C);
+    const Obs o = observe(R, t, c, X[3 * p], X[3 * p + 1], X[3 * p + 2], point_valid[p], e, uv,
+                          sigma2, obs_valid, intr, delta);
+    rho = o.rho;
+    float Jc0[6], Jc1[6], Jp0[3], Jp1[3];
+    jacobians(R + 9 * c, o, intr[0], intr[1], cam_fixed[c], Jc0, Jc1, Jp0, Jp1);
+    float* w_row = shW + tid * kWStride;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) Vp[i] = 0.0f;
+    for (int i = 0; i < 6; ++i) {
+      const float wJc0 = Jc0[i] * o.w, wJc1 = Jc1[i] * o.w;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gp[i] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int e = p * K + k;
-      const int c = clamp_cam(cam_idx[e], C);
-      const Obs o = observe(R, t, c, X0, X1, X2, point_ok, e, uv, sigma2, obs_valid, intr, delta);
-      cost += o.rho;
-      const float* Rc = R + 9 * c;
-      const float iz = 1.0f / z_safe(o.z);
-      const float iz2 = iz * iz;
-      const float a = fx * iz, b = -fx * o.x * iz2;
-      const float cc = fy * iz, d = -fy * o.y * iz2;
-      const float gate = o.w > 0.0f ? 1.0f : 0.0f;
-      const float pose_gate = gate * (cam_fixed[c] ? 0.0f : 1.0f);
-      float Jc0[6] = {a, 0.0f, b, b * o.y, a * o.z - b * o.x, -a * o.y};
-      float Jc1[6] = {0.0f, cc, d, -cc * o.z + d * o.y, -d * o.x, cc * o.x};
-      float Jp0[3], Jp1[3];
+      for (int j = 0; j < 3; ++j) w_row[3 * i + j] = wJc0 * Jp0[j] + wJc1 * Jp1[j];
+    }
+    float* v_row = shV + tid * kVStride;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        Jp0[i] = (a * Rc[i] + b * Rc[6 + i]) * gate;
-        Jp1[i] = (cc * Rc[3 + i] + d * Rc[6 + i]) * gate;
-      }
-      float wJc0[6], wJc1[6];
+    for (int i = 0; i < 3; ++i) {
+      const float wJp0 = Jp0[i] * o.w, wJp1 = Jp1[i] * o.w;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v_row[3 * i + j] = wJp0 * Jp0[j] + wJp1 * Jp1[j];
+      v_row[9 + i] = -(wJp0 * o.r0 + wJp1 * o.r1);
+    }
+  }
+  __syncthreads();
+  const int n_obs = max(nl, 0) * K;
+  float* Wb = W + (size_t)p0 * K * 18;
+  for (int q = tid; q < n_obs * 18; q += blockDim.x) {
+    const int i = q / 18;
+    Wb[q] = shW[i * kWStride + (q - i * 18)];
+  }
+  for (int q = tid; q < nl * 12; q += blockDim.x) {
+    const int ll = q / 12, i = q - ll * 12;
+    const float* src = shV + ll * K * kVStride + i;
+    float s = 0.0f;
+    for (int k = 0; k < K; ++k) s += src[k * kVStride];
+    if (i < 9)
+      V[(size_t)(p0 + ll) * 9 + i] = s;
+    else
+      g_p[(size_t)(p0 + ll) * 3 + (i - 9)] = s;
+  }
+  __syncthreads();  // the W tile is free again: block_sum's scratch
+  const float s = block_sum(rho, shW);
+  if (tid == 0) partials[blockIdx.x] = s;
+}
+
+// Fixed-order shuffle tree over a warp; lane 0 gets the sum.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Chunk b of the camera CSR: each camera's segment is cut into pieces of
+// `chunk` slots, camera c owning chunks[c]..chunks[c+1].  Returns false past
+// the last chunk; else the camera and the chunk's slots [lo, hi).
+__device__ __forceinline__ bool chunk_slots(const int* __restrict__ offsets,
+                                            const int* __restrict__ chunks, int C, int chunk,
+                                            int b, int* cam, int* lo, int* hi) {
+  if (b >= chunks[C]) return false;
+  int a = 0, z = C;  // chunks[a] <= b < chunks[z]: the last camera starting at or before b
+  while (z - a > 1) {
+    const int m = (a + z) >> 1;
+    if (chunks[m] <= b) a = m; else z = m;
+  }
+  *cam = a;
+  *lo = offsets[a] + (b - chunks[a]) * chunk;
+  *hi = min(*lo + chunk, offsets[a + 1]);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// Normal equations, camera side: block b walks chunk b's sorted slots j of
+// its camera c (thread tid takes j = lo + tid, lo + tid + blockDim, ...),
+// recomputes each observation order[j] from the camera pose and the point,
+// and sums w Jc^T Jc (upper triangle) and -w Jc^T r in slot order.  Fixed
+// cameras get exact zeros.  out: one 42-float row per chunk (U row-major,
+// then g_c).
+// ---------------------------------------------------------------------------
+__global__ void normal_blocks_camera_kernel(const float* __restrict__ R,
+                                            const float* __restrict__ t,
+                                            const float* __restrict__ X,
+                                            const uint8_t* __restrict__ point_valid,
+                                            const float* __restrict__ uv,
+                                            const float* __restrict__ sigma2,
+                                            const uint8_t* __restrict__ obs_valid,
+                                            const uint8_t* __restrict__ cam_fixed,
+                                            const float* __restrict__ intr, int K, float delta,
+                                            const int* __restrict__ order,
+                                            const int* __restrict__ offsets,
+                                            const int* __restrict__ chunks, int C, int chunk,
+                                            float* __restrict__ out) {
+  __shared__ float sh[kCamAcc][kThreads / 32];
+  int c, lo, hi;
+  if (!chunk_slots(offsets, chunks, C, chunk, blockIdx.x, &c, &lo, &hi)) return;
+  float acc[kCamAcc];
+#pragma unroll
+  for (int q = 0; q < kCamAcc; ++q) acc[q] = 0.0f;
+  if (!cam_fixed[c]) {
+    for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+      const int e = order[j];
+      const int p = e / K;
+      const Obs o = observe(R, t, c, X[3 * p], X[3 * p + 1], X[3 * p + 2], point_valid[p], e,
+                            uv, sigma2, obs_valid, intr, delta);
+      float Jc0[6], Jc1[6], Jp0[3], Jp1[3];
+      jacobians(R + 9 * c, o, intr[0], intr[1], false, Jc0, Jc1, Jp0, Jp1);
+      int q = 0;
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        Jc0[i] *= pose_gate;
-        Jc1[i] *= pose_gate;
-        wJc0[i] = Jc0[i] * o.w;
-        wJc1[i] = Jc1[i] * o.w;
-      }
-      float* We = W + (size_t)e * 18;
+        const float wJc0 = Jc0[i] * o.w, wJc1 = Jc1[i] * o.w;
 #pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) We[3 * i + j] = wJc0[i] * Jp0[j] + wJc1[i] * Jp1[j];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float wJp0 = Jp0[i] * o.w, wJp1 = Jp1[i] * o.w;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) Vp[3 * i + j] += wJp0 * Jp0[j] + wJp1 * Jp1[j];
-        gp[i] += -(wJp0 * o.r0 + wJp1 * o.r1);
-      }
-      float* row = rows + (size_t)pos[e] * kRowF;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) row[6 * i + j] = wJc0[i] * Jc0[j] + wJc1[i] * Jc1[j];
-        row[36 + i] = -(wJc0[i] * o.r0 + wJc1[i] * o.r1);
+        for (int k = i; k < 6; ++k) acc[q++] += wJc0 * Jc0[k] + wJc1 * Jc1[k];
+        acc[21 + i] += -(wJc0 * o.r0 + wJc1 * o.r1);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) V[9 * p + i] = Vp[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) g_p[3 * p + i] = gp[i];
   }
-  const float s = block_sum(cost, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kCamAcc; ++q) {
+    const float v = warp_sum(acc[q]);
+    if (lane == 0) sh[q][warp] = v;
+  }
+  __syncthreads();
+  const int f = threadIdx.x;
+  if (f < kRowF) {
+    int q;
+    if (f < 36) {
+      const int i = min(f / 6, f % 6), k = max(f / 6, f % 6);
+      q = i * 6 - i * (i - 1) / 2 + (k - i);  // upper-triangle index of (i, k)
+    } else {
+      q = 21 + (f - 36);
+    }
+    float v = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += sh[q][w];
+    out[(size_t)blockIdx.x * kRowF + f] = v;
+  }
+}
+
+// The last block sums the point kernel's n cost partials in order; the
+// others add each camera's chunk rows in chunk order.
+__global__ void normal_blocks_finish_kernel(const float* __restrict__ cam_part,
+                                            const int* __restrict__ chunks, int C,
+                                            const float* __restrict__ partials, int n,
+                                            float* __restrict__ UG, float* __restrict__ cost) {
+  if (blockIdx.x == gridDim.x - 1) {
+    __shared__ float sh[kThreads];
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partials[i];
+    const float s = block_sum(acc, sh);
+    if (threadIdx.x == 0) cost[0] = s;
+    return;
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C * kRowF) return;
+  const int c = i / kRowF, f = i - c * kRowF;
+  float v = 0.0f;
+  for (int b = chunks[c]; b < chunks[c + 1]; ++b) v += cam_part[(size_t)b * kRowF + f];
+  UG[i] = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -384,21 +541,62 @@ __global__ void cam_broadcast_kernel(const float* __restrict__ v, const int* __r
 }
 
 // ---------------------------------------------------------------------------
-// Observation -> camera segment sum with drops: each kept row y[e] goes to
-// its camera-sorted slot pos[e]; rows whose camera id was outside [0, C) sit
-// in a trailing drop bucket (slots >= offsets[C]) and are never written or
-// summed.  seg_sum_kernel then sums each camera's slots in a fixed order.
+// Observation -> camera sums with drops, in one pass: block b sums
+// y[order[j]] over chunk b's sorted slots of its camera in ascending j.
+// Thread tid covers column f0 + tid % FC of rows tid / FC, + R, + 2R, ...
+// (FC = min(F, blockDim) columns, R = blockDim / FC rows per pass: a warp
+// reads whole F-wide rows); a fixed tree then adds the R row partials of
+// each column.  Rows whose camera id was outside [0, C) sit in the CSR's
+// drop bucket (slots >= offsets[C]) and are never read.  out: one F-float
+// row per chunk.
 // ---------------------------------------------------------------------------
-__global__ void scatter_rows_kernel(const float* __restrict__ y, const int* __restrict__ pos,
-                                    const int* __restrict__ offsets, int C, int F, long long n,
-                                    float* __restrict__ rows) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long e = i / F;
-  const int f = (int)(i - e * F);
-  const int j = pos[e];
-  if (j < offsets[C]) rows[(size_t)j * F + f] = y[i];
+__global__ void cam_reduce_kernel(const float* __restrict__ y, const int* __restrict__ order,
+                                  const int* __restrict__ offsets,
+                                  const int* __restrict__ chunks, int C, int chunk, int F,
+                                  float* __restrict__ out) {
+  __shared__ float sh[kThreads];
+  int c, lo, hi;
+  if (!chunk_slots(offsets, chunks, C, chunk, blockIdx.x, &c, &lo, &hi)) return;
+  const int tid = threadIdx.x;
+  const int FC = min(F, (int)blockDim.x);
+  const int R = blockDim.x / FC;
+  const int r = tid / FC, fl = tid - r * FC;
+  int half = 1;
+  while (2 * half < R) half *= 2;  // the tree's first stride: R <= 2 * half
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int f = f0 + fl;
+    float acc = 0.0f;
+    if (r < R && f < F) {
+#pragma unroll 4
+      for (int j = lo + r; j < hi; j += R) acc += y[(size_t)order[j] * F + f];
+    }
+    sh[tid] = acc;
+    __syncthreads();
+    for (int h = half; h > 0; h >>= 1) {
+      if (r < h && r + h < R) sh[tid] += sh[tid + h * FC];
+      __syncthreads();
+    }
+    if (r == 0 && f < F) out[(size_t)blockIdx.x * F + f] = sh[fl];
+    __syncthreads();
+  }
 }
+
+// out[c, f] = sum of camera c's chunk rows part[b, f], in chunk order.
+__global__ void cam_reduce_combine_kernel(const float* __restrict__ part,
+                                          const int* __restrict__ chunks, int C, int F,
+                                          float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)C * F) return;
+  const int c = (int)(i / F);
+  const int f = (int)(i - (long long)c * F);
+  float v = 0.0f;
+  for (int b = chunks[c]; b < chunks[c + 1]; ++b) v += part[(size_t)b * F + f];
+  out[i] = v;
+}
+
+// Grid of the camera-major kernels: sum over cameras of ceil(len / chunk)
+// is at most E / chunk + C; blocks past the last chunk return at once.
+unsigned chunk_grid(long long E, int C, int chunk) { return (unsigned)(E / chunk + C); }
 
 }  // namespace
 
@@ -420,22 +618,37 @@ int ccm_reproj_cost(const float* R, const float* t, const float* X, const uint8_
   return (int)cudaGetLastError();
 }
 
-// W [P,K,6,3], V [P,3,3], g_p [P,3], UG [C,42] (U row-major then g_c);
-// rows [P*K,42] and partials scratch; cost [1].
+// W [P,K,6,3], V [P,3,3], g_p [P,3], UG [C,42] (U row-major then g_c), cost [1].
+// The point kernel runs ceil(P/L) blocks of `threads` (a power of two >= L*K)
+// with L landmarks each; partials [ceil(P/L)] scratch.  The camera kernel
+// runs one block per chunk of the camera CSR (order [E], offsets [C+1],
+// chunks [C+1]), its rows in cam_part [P*K/chunk + C, 42] scratch; the
+// finish kernel adds them per camera and sums the cost partials.
 int ccm_normal_blocks(const float* R, const float* t, const float* X,
                       const uint8_t* point_valid, const int* cam_idx, const float* uv,
                       const float* sigma2, const uint8_t* obs_valid, const uint8_t* cam_fixed,
-                      const float* intr, int C, int P, int K, float delta, const int* pos,
-                      const int* offsets, float* W, float* V, float* g_p, float* UG,
-                      float* rows, float* partials, float* cost, void* stream) {
+                      const float* intr, int C, int P, int K, int threads, int L, int chunk,
+                      float delta, const int* order, const int* offsets, const int* chunks,
+                      float* W, float* V, float* g_p, float* UG, float* cam_part,
+                      float* partials, float* cost, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = n_blocks(P);
-  if (nb > 0)
-    normal_blocks_kernel<<<nb, kThreads, 0, s>>>(R, t, X, point_valid, cam_idx, uv, sigma2,
-                                                 obs_valid, cam_fixed, intr, C, P, K, delta,
-                                                 pos, W, V, g_p, rows, partials);
-  launch_seg_sum(rows, offsets, C, kRowF, UG, s);
-  sum_partials_kernel<<<1, kThreads, 0, s>>>(partials, nb, cost);
+  const int nb = P > 0 ? (P + L - 1) / L : 0;
+  if (nb > 0) {
+    const size_t smem = (size_t)threads * (kWStride + kVStride) * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          normal_blocks_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    normal_blocks_point_kernel<<<nb, threads, smem, s>>>(R, t, X, point_valid, cam_idx, uv,
+                                                          sigma2, obs_valid, cam_fixed, intr, C,
+                                                          P, K, L, delta, W, V, g_p, partials);
+  }
+  normal_blocks_camera_kernel<<<chunk_grid((long long)P * K, C, chunk), kThreads, 0, s>>>(
+      R, t, X, point_valid, uv, sigma2, obs_valid, cam_fixed, intr, K, delta, order, offsets,
+      chunks, C, chunk, cam_part);
+  normal_blocks_finish_kernel<<<(C * kRowF + kThreads - 1) / kThreads + 1, kThreads, 0, s>>>(
+      cam_part, chunks, C, partials, nb, UG, cost);
   return (int)cudaGetLastError();
 }
 
@@ -481,16 +694,17 @@ int ccm_cam_broadcast(const float* v, const int* ci, int C, int F, int E, float*
   return (int)cudaGetLastError();
 }
 
-// out [C,F]; rows [E,F] scratch; pos [E], offsets [C+1] (offsets[C] = rows kept).
-int ccm_cam_reduce(const float* y, const int* pos, const int* offsets, int C, int F, int E,
-                   float* rows, float* out, void* stream) {
+// out [C,F]; order [E], offsets [C+1] and chunks [C+1] of the drop-bucket
+// CSR (offsets[C] = rows kept); part [E/chunk + C, F] scratch.
+int ccm_cam_reduce(const float* y, const int* order, const int* offsets, const int* chunks,
+                   int C, int F, int E, int chunk, float* part, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)E * F;
-  if (n > 0) {
-    const long long nb = (n + kThreads - 1) / kThreads;
-    scatter_rows_kernel<<<(unsigned)nb, kThreads, 0, s>>>(y, pos, offsets, C, F, n, rows);
-  }
-  launch_seg_sum(rows, offsets, C, F, out, s);
+  if (C <= 0 || F <= 0) return (int)cudaGetLastError();
+  cam_reduce_kernel<<<chunk_grid(E, C, chunk), kThreads, 0, s>>>(y, order, offsets, chunks, C,
+                                                                chunk, F, part);
+  const long long n = (long long)C * F;
+  cam_reduce_combine_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, chunks, C, F, out);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 
 The interface is unpacked: W is [P,K,6,3]; U, V, g_c, g_p and the cost are
 plain tensors.  Camera sums on the card go through a ``CamCSR`` (observations
-stably sorted by camera), built once per solve with ``cam_csr``.
+stably sorted by camera), built once per solve with ``cam_csr``; ``cam_reduce``
+through a ``ReduceCSR`` (``reduce_csr``), which drops out-of-range ids.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain calls do not count),
 so a run can show that its path went through the kernels.
@@ -47,18 +48,19 @@ LAUNCHES = {
     "schur_matvec": 0,
 }
 
-_THREADS = 256  # per-landmark block size in csrc/ba_kernels.cu
-_ROW_F = 42     # per-observation U (36) + g_c (6) row
+_THREADS = 256  # per-landmark and camera-major block size in csrc/ba_kernels.cu
+_ROW_F = 42     # a camera's U (36) + g_c (6) row
+CHUNK = 512     # CSR slots per block of the camera-major kernels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ccm_reproj_cost": [_P] * 9 + [_I, _I, _I, _F] + [_P] * 3,
-    "ccm_normal_blocks": [_P] * 10 + [_I, _I, _I, _F] + [_P] * 10,
+    "ccm_normal_blocks": [_P] * 10 + [_I] * 6 + [_F] + [_P] * 11,
     "ccm_schur_off": [_P] * 6 + [_I, _I, _I] + [_P] * 3,
     "ccm_schur_rhs": [_P] * 4 + [_I, _I, _I] + [_P] * 3,
     "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
     "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
-    "ccm_cam_reduce": [_P] * 3 + [_I, _I, _I] + [_P] * 3,
+    "ccm_cam_reduce": [_P] * 4 + [_I] * 4 + [_P] * 3,
 }
 
 
@@ -111,48 +113,63 @@ class CamCSR:
     """Observations stably sorted by (clipped) camera index.
 
     cam_idx is constant across LM and CG iterations, so this is built once
-    per solve.  The kernels write each observation's camera-side row into
-    its sorted slot ``pos[e]``; camera c owns slots
-    ``offsets[c]:offsets[c+1]``, which one segment kernel sums in order.
+    per solve.  Camera c owns sorted slots ``offsets[c]:offsets[c+1]``;
+    ``order[j]`` is the observation in slot j and ``pos`` its inverse.  The
+    Schur kernels write each observation's row into its slot ``pos[e]`` for
+    one segment kernel to sum in order; ``normal_blocks``' camera kernel
+    reads the observations of each camera through ``order``, one block per
+    chunk of ``CHUNK`` slots (camera c owns chunks ``chunks[c]:chunks[c+1]``).
     """
 
     C: int
     ci: torch.Tensor       # [P,K] int32, cam_idx clipped to [0, C)
     pos: torch.Tensor      # [P*K] int32
     offsets: torch.Tensor  # [C+1] int32
+    order: torch.Tensor    # [P*K] int32, the inverse of pos
+    chunks: torch.Tensor   # [C+1] int32
+
+
+def _sorted_slots(key: torch.Tensor, C: int):
+    """(order, offsets, chunks) of ``key`` [E] int64 in [0, C]: a stable
+    sort by key; slots of key C (a drop bucket) come last and own no offsets
+    or chunks."""
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=C + 1)[:C]
+    offsets = torch.zeros(C + 1, dtype=torch.int64, device=key.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    chunks = torch.zeros_like(offsets)
+    chunks[1:] = torch.cumsum((counts + CHUNK - 1) // CHUNK, 0)
+    i32 = torch.int32
+    return order.to(i32), offsets.to(i32), chunks.to(i32)
 
 
 def cam_csr(cam_idx: torch.Tensor, C: int) -> CamCSR:
     ci = cam_idx.clamp(0, C - 1).to(torch.int32).contiguous()
-    flat = ci.reshape(-1).long()
-    order = torch.argsort(flat, stable=True)
+    order, offsets, chunks = _sorted_slots(ci.reshape(-1).long(), C)
     pos = torch.empty_like(order)
-    pos[order] = torch.arange(flat.numel(), device=flat.device)
-    offsets = torch.zeros(C + 1, dtype=torch.int64, device=flat.device)
-    offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=C), 0)
-    return CamCSR(C=C, ci=ci, pos=pos.to(torch.int32), offsets=offsets.to(torch.int32))
+    pos[order.long()] = torch.arange(order.numel(), dtype=torch.int32, device=order.device)
+    return CamCSR(C=C, ci=ci, pos=pos, offsets=offsets, order=order, chunks=chunks)
 
 
 @dataclass(frozen=True)
 class ReduceCSR:
     """Rows grouped by camera for ``cam_reduce``: rows whose id lies outside
-    [0, C) are DROPPED (sorted into a trailing bucket that is never summed),
-    unlike ``cam_csr``, which clamps ids for BA.  Camera c owns sorted slots
-    ``offsets[c]:offsets[c+1]``; ``offsets[C]`` is the number of rows kept."""
+    [0, C) are DROPPED (sorted into a trailing bucket, slots ``offsets[C]``
+    and after, that is never read), unlike ``cam_csr``, which clamps ids for
+    BA.  Camera c owns sorted slots ``offsets[c]:offsets[c+1]`` and chunks
+    ``chunks[c]:chunks[c+1]`` of ``CHUNK`` slots; ``order[j]`` is the row in
+    slot j; ``offsets[C]`` is the number of rows kept."""
 
     C: int
-    pos: torch.Tensor      # [E] int32
     offsets: torch.Tensor  # [C+1] int32
+    order: torch.Tensor    # [E] int32
+    chunks: torch.Tensor   # [C+1] int32
 
 
 def reduce_csr(ci: torch.Tensor, C: int) -> ReduceCSR:
     key = torch.where((ci >= 0) & (ci < C), ci, C).long()
-    order = torch.argsort(key, stable=True)
-    pos = torch.empty_like(order)
-    pos[order] = torch.arange(key.numel(), device=key.device)
-    offsets = torch.zeros(C + 1, dtype=torch.int64, device=key.device)
-    offsets[1:] = torch.cumsum(torch.bincount(key, minlength=C + 1)[:C], 0)
-    return ReduceCSR(C=C, pos=pos.to(torch.int32), offsets=offsets.to(torch.int32))
+    order, offsets, chunks = _sorted_slots(key, C)
+    return ReduceCSR(C=C, offsets=offsets, order=order, chunks=chunks)
 
 
 def _check_csr(csr: CamCSR, C: int, P: int, K: int, device) -> None:
@@ -161,6 +178,8 @@ def _check_csr(csr: CamCSR, C: int, P: int, K: int, device) -> None:
     _check("csr.ci", csr.ci, torch.int32, (P, K), device)
     _check("csr.pos", csr.pos, torch.int32, (P * K,), device)
     _check("csr.offsets", csr.offsets, torch.int32, (C + 1,), device)
+    _check("csr.order", csr.order, torch.int32, (P * K,), device)
+    _check("csr.chunks", csr.chunks, torch.int32, (C + 1,), device)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +285,22 @@ def _n_blocks(n: int) -> int:
     return max(1, -(-n // _THREADS))
 
 
+def _chunk_rows(E: int, C: int) -> int:
+    """Rows of the camera-major kernels' per-chunk scratch: the chunks of
+    ``CHUNK`` slots number at most E // CHUNK + C."""
+    return E // CHUNK + C
+
+
+def point_layout(K: int) -> tuple:
+    """(threads, L) of ``normal_blocks``' point kernel: blocks of ``threads``
+    (256, or the power of two at or above K) holding L = threads // K whole
+    landmarks, one thread per observation slot."""
+    if not 1 <= K <= 1024:
+        raise ValueError(f"normal_blocks: K={K} slots; the card takes 1 to 1024")
+    threads = _THREADS if K <= _THREADS else 1 << (K - 1).bit_length()
+    return threads, threads // K
+
+
 def reproj_cost(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr,
                 huber_delta: float):
     """Huber reprojection cost of the state (0-d float32 tensor).
@@ -299,18 +334,20 @@ def normal_blocks(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, cam_fixe
     if not _on_card(dev):
         return normal_blocks_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid,
                                    cam_fixed, intr, huber_delta)
+    threads, L = point_layout(K)
     f32 = dict(dtype=torch.float32, device=dev)
     W = torch.empty(P, K, 6, 3, **f32)
     V = torch.empty(P, 3, 3, **f32)
     g_p = torch.empty(P, 3, **f32)
     UG = torch.empty(C, _ROW_F, **f32)
-    rows = torch.empty(P * K, _ROW_F, **f32)
-    partials = torch.empty(_n_blocks(P), **f32)
+    cam_part = torch.empty(_chunk_rows(P * K, C), _ROW_F, **f32)
+    partials = torch.empty(max(1, -(-P // L)), **f32)
     cost = torch.empty((), **f32)
     _launch("ccm_normal_blocks", dev, _ptr(R), _ptr(t), _ptr(X), _ptr(point_valid),
             _ptr(cam_idx), _ptr(uv), _ptr(sigma2), _ptr(obs_valid), _ptr(cam_fixed),
-            _ptr(intr), C, P, K, float(huber_delta), _ptr(csr.pos), _ptr(csr.offsets),
-            _ptr(W), _ptr(V), _ptr(g_p), _ptr(UG), _ptr(rows), _ptr(partials), _ptr(cost))
+            _ptr(intr), C, P, K, threads, L, CHUNK, float(huber_delta), _ptr(csr.order),
+            _ptr(csr.offsets), _ptr(csr.chunks), _ptr(W), _ptr(V), _ptr(g_p), _ptr(UG),
+            _ptr(cam_part), _ptr(partials), _ptr(cost))
     LAUNCHES["normal_blocks"] += 1
     return UG[:, :36].reshape(C, 6, 6), V, W, UG[:, 36:], g_p, cost
 
@@ -400,7 +437,8 @@ def cam_reduce(y, ci, C: int, csr: ReduceCSR = None):
     """Observation rows to camera sums: out[c] = sum_{e: ci[e]=c} y[e]; rows
     whose id lies outside [0, C) are dropped.  y [E,F] float32, ci [E] int32
     -> [C,F].  ``csr`` (``reduce_csr(ci, C)``) may be passed in when ci is
-    reused across calls.  The sum runs in a fixed order (no atomics)."""
+    reused across calls.  On the card one pass gathers each camera's rows
+    through ``csr.order`` and sums them in a fixed order (no atomics)."""
     dev = y.device
     if y.dim() != 2 or ci.dim() != 1:
         raise ValueError(f"expected y [E,F] and ci [E], got {tuple(y.shape)}, {tuple(ci.shape)}")
@@ -414,12 +452,13 @@ def cam_reduce(y, ci, C: int, csr: ReduceCSR = None):
     csr = reduce_csr(ci, C) if csr is None else csr
     if csr.C != C:
         raise ValueError(f"csr built for C={csr.C}, call has C={C}")
-    _check("csr.pos", csr.pos, torch.int32, (E,), dev)
+    _check("csr.order", csr.order, torch.int32, (E,), dev)
     _check("csr.offsets", csr.offsets, torch.int32, (C + 1,), dev)
-    rows = torch.empty(E, F, dtype=torch.float32, device=dev)
+    _check("csr.chunks", csr.chunks, torch.int32, (C + 1,), dev)
+    part = torch.empty(_chunk_rows(E, C), F, dtype=torch.float32, device=dev)
     out = torch.empty(C, F, dtype=torch.float32, device=dev)
-    _launch("ccm_cam_reduce", dev, _ptr(y), _ptr(csr.pos), _ptr(csr.offsets), C, F, E,
-            _ptr(rows), _ptr(out))
+    _launch("ccm_cam_reduce", dev, _ptr(y), _ptr(csr.order), _ptr(csr.offsets),
+            _ptr(csr.chunks), C, F, E, CHUNK, _ptr(part), _ptr(out))
     LAUNCHES["cam_reduce"] += 1
     return out
 

@@ -10,10 +10,16 @@ that path's own expected counts after it:
 
   1. device and build;
   2. the BA kernels at the server-GBA shapes, on a ragged case and at the
-     client's local-BA widths (K=16 and K=32 observation slots);
+     client's local-BA widths (K=16 and K=32 observation slots, and a ragged
+     K=12 case), each bit-identical on a rerun;
   3. server-scale global BA (PCG branch), local-BA-size BA (dense branch, at
      K=8, 16 and 32), an interrupted (chunked) solve, the pose-only step;
-  4. BA times;
+  4. kernel times, all taken before the first long profiler window: every
+     BA kernel (``cam_reduce`` included) at the server-GBA shapes,
+     ``normal_blocks`` and ``cam_reduce`` at the client's local-BA shape
+     (C=40, P=4096, K=16), ``normal_blocks``, ``cam_reduce`` and
+     ``make_schur_matvec`` at the stress shape (C=1024, P=131,072, K=8),
+     ``hamming_top2`` at 1024 x 16384; then the solve's wall and device time;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
      of the targets invalid, a ragged case, invalid queries, a single valid
      target -- equal outputs, and bit-identical on a second run;
@@ -26,7 +32,7 @@ that path's own expected counts after it:
      its 16384-slot landmark arena filled, then a later frame relocalized
      (``match_brute`` -> the ``hamming_top2`` kernel, RANSAC-PnP, refine,
      local-map gate), checked against ground truth;
-  8. front-end times (medians of 5 runs with their spread);
+  8. front-end step times (medians of 5 runs with their spread);
   9. ``cam_reduce`` (F=6 and 42 at the server-GBA and stress shapes, and a
      ragged case whose ids -1 and >= C must be dropped) and
      ``make_schur_matvec`` (server-GBA and stress shapes) against their plain
@@ -43,7 +49,11 @@ It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
 ``{"kernels": [...]}`` (each kernel's launches on its path, error against
 its plain version, device time, plain time, bound and library yardstick),
-and last ``{"ok": true, "device": {...}}``.
+and last ``{"ok": true, "device": {...}}``.  Kernel times are the
+profiler's device time per wrapper call (``tools/kernel_timing.py``);
+where the profiler's kernel count per call disagrees with the wrapper's
+launches in three windows (it loses events now and then), the CUDA-event
+time stands in, and its log line and its ``ms_by`` key say "events".
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails.  Imports nothing of the JAX package.
@@ -72,11 +82,11 @@ from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
+from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, device_events,
+                                 device_ms, kernel_ms, log, nbytes, problem_args, reduce_entry,
+                                 time_table)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FP32_FLOP_PER_S = 67e12    # H100 SXM fp32, outside the tensor cores
 POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
-HUBER = 2.447651936
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
 SOURCE = "ccm_slam_tpu_torch/csrc/ba_kernels.cu"
 HAMMING_SOURCE = "ccm_slam_tpu_torch/csrc/hamming_kernels.cu"
@@ -92,9 +102,9 @@ KERNELS = [
 ]
 
 # the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix)
-CUDA_KERNELS = ("reproj_cost", "normal_blocks", "seg_sum", "sum_partials", "schur_off",
-                "schur_rhs", "schur_wtv", "cam_broadcast")
-
+CUDA_KERNELS = ("reproj_cost", "normal_blocks_point", "normal_blocks_camera",
+                "normal_blocks_finish", "seg_sum", "sum_partials", "schur_off", "schur_rhs",
+                "schur_wtv", "cam_broadcast", "cam_reduce", "cam_reduce_combine")
 # the bootstrap pair and the relocalization frame of
 # RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
 # JAX package's own errors on that pair against ground truth (rotation,
@@ -122,10 +132,6 @@ TOL_BLOCKS = 5e-3      # rtol for U, V, W, g_c, g_p (atol 1e-5 * max|ref|)
 TOL_COST = 1e-4        # relative, on the Huber cost sum (+1e-2 absolute)
 TOL_SCHUR = 1e-4       # rtol for off/rhs/wtv (atol 1e-4 * max|ref|)
 TOL_REDUCE = 1e-4      # rtol for cam_reduce (atol 1e-5 * max|ref|)
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
 
 
 _PHASE_T0 = [time.perf_counter()]
@@ -185,11 +191,6 @@ def compare_cost(name, out, ref):
     return err
 
 
-def problem_args(prob):
-    return (prob.R, prob.t, prob.X, prob.point_valid, prob.cam_idx, prob.uv,
-            prob.sigma2, prob.obs_valid)
-
-
 def check_kernels(prob, rng, label):
     """Every kernel against its plain version on ``prob``; returns
     {kernel: max_abs_err} and the inputs used, for timing."""
@@ -200,21 +201,38 @@ def check_kernels(prob, rng, label):
     csr = bk.cam_csr(prob.cam_idx, C)
     errs = {}
 
-    cost_k = bk.reproj_cost(*problem_args(prob), intr, HUBER)
+    def rerun(name, fn, out):
+        """No float atomics: a second call gives the same bits."""
+        again = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        agains = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
+            raise AssertionError(f"{name}: rerun not bit-identical")
+
+    def cost_fn():
+        return bk.reproj_cost(*problem_args(prob), intr, HUBER)
+
+    def blocks_fn():
+        return bk.normal_blocks(*problem_args(prob), prob.cam_fixed, intr, HUBER, csr)
+
+    cost_k = cost_fn()
     cost_p = bk.reproj_cost_plain(*problem_args(prob), intr, HUBER)
     errs["reproj_cost"] = compare_cost("reproj_cost", cost_k, cost_p)
+    rerun("reproj_cost", cost_fn, cost_k)
 
-    out_k = bk.normal_blocks(*problem_args(prob), prob.cam_fixed, intr, HUBER, csr)
+    out_k = blocks_fn()
     out_p = bk.normal_blocks_plain(*problem_args(prob), prob.cam_fixed, intr, HUBER)
     nb_err = 0.0
     for part, a, b in zip(("U", "V", "W", "g_c", "g_p"), out_k[:5], out_p[:5]):
         nb_err = max(nb_err, compare(f"normal_blocks.{part}", a, b, TOL_BLOCKS, 1e-5))
     compare_cost("normal_blocks.cost", out_k[5], out_p[5])
     errs["normal_blocks"] = nb_err
+    rerun("normal_blocks", blocks_fn, out_k)
     U, V, W = out_k[0], out_k[1], out_k[2]
     fixed = prob.cam_fixed.nonzero().flatten()
-    if fixed.numel() and float(U[fixed].abs().max()) != 0.0:
-        raise AssertionError("normal_blocks: fixed cameras must get zero U")
+    if fixed.numel() and (float(U[fixed].abs().max()) != 0.0
+                          or float(out_k[3][fixed].abs().max()) != 0.0):
+        raise AssertionError("normal_blocks: fixed cameras must get zero U and g_c")
 
     Vinv = ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=dev))).contiguous()
     v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=dev)
@@ -223,75 +241,26 @@ def check_kernels(prob, rng, label):
     ops_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
     for name, fk, fp, x in zip(("schur_off", "schur_rhs", "schur_wtv"), ops_k, ops_p,
                                (v, q, v)):
-        errs[name] = compare(name, fk(x), fp(x), TOL_SCHUR, 1e-4)
+        out = fk(x)
+        errs[name] = compare(name, out, fp(x), TOL_SCHUR, 1e-4)
+        rerun(name, lambda: fk(x), out)
 
     # on the path the broadcast carries the 12 pose floats (R | t) per camera
     ci = csr.ci.reshape(-1)
     Rt = torch.cat([prob.R.reshape(C, 9), prob.t], dim=-1).contiguous()
-    errs["cam_broadcast"] = compare("cam_broadcast", bk.cam_broadcast(Rt, ci),
-                                    bk.cam_broadcast_plain(Rt, ci), 0.0, 0.0)
+    out = bk.cam_broadcast(Rt, ci)
+    errs["cam_broadcast"] = compare("cam_broadcast", out, bk.cam_broadcast_plain(Rt, ci),
+                                    0.0, 0.0)
+    rerun("cam_broadcast", lambda: bk.cam_broadcast(Rt, ci), out)
     torch.cuda.synchronize()
+    log("  every kernel above: bit-identical on a rerun  ok")
     inputs = dict(prob=prob, intr=intr, csr=csr, W=W, Vinv=Vinv, v=v, q=q, Rt=Rt, ci=ci)
     return errs, inputs
 
 
-def event_ms(fn, reps):
-    """Mean time per call over ``reps`` back-to-back calls, CUDA events:
-    host dispatch included wherever it outlasts the device work."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_events(fn):
-    """torch.profiler's averages of the device kernels that ``fn`` runs, and
-    the wall ms of ``fn`` under the profiler (its start and stop left out)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return device, wall_ms
-
-
-def device_ms(fn, reps):
-    """(device ms per call, device kernels per call) over ``reps`` calls:
-    the summed time of the device kernels the calls ran, from torch.profiler,
-    so host dispatch and the gaps between launches are left out.  None for
-    the time when the profiler saw no device activity."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-
-    def loop():
-        for _ in range(reps):
-            fn()
-
-    device, _ = device_events(loop)
-    busy_us = sum(e.self_device_time_total for e in device)
-    n = sum(e.count for e in device) / reps
-    return (busy_us / 1e3 / reps if busy_us > 0 else None), n
-
-
-def nbytes(*xs):
-    return sum(x.numel() * x.element_size() for x in xs)
-
-
 def kernel_timings(inp):
-    """(ms, plain_ms, bound_ms, bound_by, library_ms) per kernel: device
-    times from the profiler (CUDA events where it sees no device work)."""
+    """``time_table``'s result for every kernel at the bench shapes,
+    cam_reduce included."""
     prob, intr, csr = inp["prob"], inp["intr"], inp["csr"]
     C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
     E = P * K
@@ -301,50 +270,27 @@ def kernel_timings(inp):
     off_p, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
     scalar = torch.empty((), dtype=torch.float32)
     c6, p3 = torch.empty(C, 6), torch.empty(P, 3)
+    flops = dict((name, f) for name, _, f in KERNELS)
     table = {
         "reproj_cost": (
             lambda: bk.reproj_cost(*args, intr, HUBER),
             lambda: bk.reproj_cost_plain(*args, intr, HUBER),
-            nbytes(*args, intr, scalar), None),
-        "normal_blocks": (
-            lambda: bk.normal_blocks(*args, prob.cam_fixed, intr, HUBER, csr),
-            lambda: bk.normal_blocks_plain(*args, prob.cam_fixed, intr, HUBER),
-            nbytes(*args, prob.cam_fixed, intr, W, torch.empty(P, 3, 3), p3,
-                   torch.empty(C, 6, 6), c6, scalar), None),
+            nbytes(*args, intr, scalar), flops["reproj_cost"], None),
+        "normal_blocks": blocks_entry(bk, prob, csr)[:5],
         "schur_off": (lambda: off_k(v), lambda: off_p(v),
-                      nbytes(v, W, Vinv, prob.cam_idx, c6), None),
+                      nbytes(v, W, Vinv, prob.cam_idx, c6), flops["schur_off"], None),
         "schur_rhs": (lambda: rhs_k(q), lambda: rhs_p(q),
-                      nbytes(q, W, prob.cam_idx, c6), None),
+                      nbytes(q, W, prob.cam_idx, c6), flops["schur_rhs"], None),
         "schur_wtv": (lambda: wtv_k(v), lambda: wtv_p(v),
-                      nbytes(v, W, prob.cam_idx, p3), None),
+                      nbytes(v, W, prob.cam_idx, p3), flops["schur_wtv"], None),
         "cam_broadcast": (
             lambda: bk.cam_broadcast(Rt, ci), lambda: bk.cam_broadcast_plain(Rt, ci),
-            nbytes(Rt, ci, torch.empty(E, Rt.shape[1])),
+            nbytes(Rt, ci, torch.empty(E, Rt.shape[1])), 0,
             lambda: torch.index_select(Rt, 0, ci)),
     }
-
-    def timed(fn, reps):
-        dev_ms, n = device_ms(fn, reps)
-        ev_ms = event_ms(fn, reps)
-        return (dev_ms if dev_ms is not None else ev_ms), ev_ms, n, dev_ms is not None
-
-    out = {}
-    for name, _, flops_per_obs in KERNELS:
-        fk, fp, n_bytes, flib = table[name]
-        ms, ev, n_k, prof_ok = timed(fk, 100)
-        plain_ms, plain_ev, n_p, _ = timed(fp, 20)
-        lib_ms = timed(flib, 100)[0] if flib is not None else None
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops_per_obs * E / FP32_FLOP_PER_S * 1e3
-        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        out[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
-        lib_s = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        how = "device" if prof_ok else "events (profiler saw no device time)"
-        log(f"  {name:<14} kernel {ms:.4f} ms {how}, {n_k:g} device kernels/call "
-            f"({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms, {n_p:g} kernels/call "
-            f"({plain_ev:.4f} by events)  bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{n_bytes / 1e6:.1f} MB)  library {lib_s}")
-    return out
+    table = {name: (*entry, DEVICE_KERNELS[name]) for name, entry in table.items()}
+    table["cam_reduce"] = reduce_entry(bk, prob)
+    return time_table(table, E, "bench")
 
 
 def centres(R, t):
@@ -446,18 +392,25 @@ def profile_solve(prob):
     if busy_ms <= 0:
         log("[times] profiled solve: device time not measured (no device events)")
         return
-    ours = [e for e in device if any(f"{name}_kernel" in e.key for name in CUDA_KERNELS)]
-    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    ours_ms = port_kernels_ms(device)
     log(f"[times] profiled solve: wall {wall_ms:.2f} ms (profiler on), device busy "
         f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), of it the port's kernels "
         f"{ours_ms:.2f} ms; {sum(e.count for e in device)} device kernels")
+    port_kernels_ms(device, "in the solve")
+
+
+def port_kernels_ms(device, where=None):
+    """Device ms of the port's CUDA kernels among profiler events; with
+    ``where``, one line per kernel (launches, us each, ms in all)."""
+    total = 0.0
     for name in CUDA_KERNELS:
-        evs = [e for e in ours if f"{name}_kernel" in e.key]
+        evs = [e for e in device if f"{name}_kernel" in e.key]
         n = sum(e.count for e in evs)
-        if n:
-            us = sum(e.self_device_time_total for e in evs)
-            log(f"  in the solve: {name}_kernel x{n}, {us / n:.2f} us each, "
-                f"{us / 1e3:.3f} ms in all")
+        us = sum(e.self_device_time_total for e in evs)
+        total += us / 1e3
+        if n and where:
+            log(f"  {where}: {name}_kernel x{n}, {us / n:.2f} us each, {us / 1e3:.3f} ms in all")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -708,26 +661,24 @@ def sm_clock_mhz():
 
 
 def hamming_timing(dev):
-    """(ms, plain_ms, bound_ms, bound_by) of hamming_top2 at 1024 x 16384:
+    """hamming_top2 at 1024 x 16384, as ``time_table`` reports a kernel:
     device times from the profiler; the bound from this run's valid pairs
     (the kernel skips invalid targets) at 16 popcounts per clock per SM."""
     q, qv, t, tv = top2_cases(dev)["1024x16384"]
-    ms, n = device_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50)
-    ev = event_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50)
+    ms, ms_by, n, ev = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50,
+                                 DEVICE_KERNELS["hamming_top2"])
     plain_ms, _ = device_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
-    ms = ms if ms is not None else ev
     clock = sm_clock_mhz() * 1e6
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     popc = int(qv.sum()) * int(tv.sum()) * 8
-    t_ops = popc / (POPC_PER_CLK_PER_SM * sms * clock) * 1e3
-    outputs = torch.empty(3, q.shape[0], dtype=torch.int32)
-    t_bytes = nbytes(q, qv, t, tv, outputs) / HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    log(f"  hamming_top2 1024x16384: kernel {ms:.4f} ms device ({n:g} device kernels/call; "
+    n_bytes = nbytes(q, qv, t, tv, torch.empty(3, q.shape[0], dtype=torch.int32))
+    bound_ms, bound_by = bound(n_bytes, popc, POPC_PER_CLK_PER_SM * sms * clock)
+    log(f"  hamming_top2 1024x16384: kernel {ms:.4f} ms by {ms_by} ({n:g} device kernels/call; "
         f"{ev:.4f} ms by events), plain {plain_ms:.4f} ms device, bound {bound_ms:.4f} ms "
         f"({bound_by}: {popc / 1e6:.1f} M popcounts at {POPC_PER_CLK_PER_SM}/clk/SM x {sms} SMs "
-        f"x {clock / 1e9:.3f} GHz; bytes {t_bytes * 1e3:.2f} us), library none")
-    return ms, plain_ms, bound_ms, bound_by
+        f"x {clock / 1e9:.3f} GHz; {n_bytes / 1e6:.2f} MB), library none")
+    return dict(ms=ms, ms_by=ms_by, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def front_end_timings(fe, frames, m_idx, m_ok, tr, reloc_frame):
@@ -835,47 +786,23 @@ def check_schur_matvec(probs, rng):
     return err
 
 
-def new_kernel_timings(stress, rng):
-    """(ms, plain_ms, bound_ms, bound_by, library_ms) of cam_reduce and
-    make_schur_matvec at the stress shape, the profiling path's inputs:
-    cam_reduce of an [E,6] array by the clipped ids (the CSR prebuilt, as
-    pcg_transitions builds it once), and the matvec's off."""
+def stress_timings(stress, rng):
+    """``time_table``'s result for normal_blocks, cam_reduce and
+    make_schur_matvec at the stress shape, the profiling path's inputs."""
     C, (P, K) = stress.R.shape[0], stress.cam_idx.shape
-    E = P * K
     dev = stress.R.device
-    ci = stress.cam_idx.reshape(-1).clamp(0, C - 1).contiguous()
-    csr = bk.reduce_csr(ci, C)
-    y = torch.as_tensor(rng.standard_normal((E, 6)).astype(np.float32), device=dev)
-    ci_l = ci.long()
     W, Vinv = schur_inputs(stress)
     v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=dev)
     off_k = bk.make_schur_matvec(W, Vinv, stress.cam_idx, C)
     off_p = bk.schur_matvec_plain(W, Vinv, stress.cam_idx, C)
-    c6 = torch.empty(C, 6)
     table = {
-        "cam_reduce": (lambda: bk.cam_reduce(y, ci, C, csr), lambda: bk.cam_reduce_plain(y, ci, C),
-                       nbytes(y, ci, c6), 1,
-                       lambda: torch.zeros(C, 6, device=dev).index_add_(0, ci_l, y)),
+        "normal_blocks": blocks_entry(bk, stress, bk.cam_csr(stress.cam_idx, C)),
+        "cam_reduce": reduce_entry(bk, stress),
         "schur_matvec": (lambda: off_k(v), lambda: off_p(v),
-                         nbytes(v, W, Vinv, stress.cam_idx, c6), 80, None),
+                         nbytes(v, W, Vinv, stress.cam_idx, torch.empty(C, 6)), 80, None,
+                         DEVICE_KERNELS["schur_matvec"]),
     }
-    out = {}
-    for name, (fk, fp, n_bytes, flops_per_obs, flib) in table.items():
-        ms_k, n_k = device_ms(fk, 100)
-        ev = event_ms(fk, 100)
-        ms_k = ms_k if ms_k is not None else ev
-        plain_ms = device_ms(fp, 20)[0]
-        lib_ms = device_ms(flib, 100)[0] if flib is not None else None
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops_per_obs * E / FP32_FLOP_PER_S * 1e3
-        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        out[name] = (ms_k, plain_ms, bound_ms, bound_by, lib_ms)
-        lib_s = (f"{lib_ms:.4f} (index_add_, float atomics: not deterministic)"
-                 if lib_ms is not None else "none")
-        log(f"  {name:<13} C={C} E={E}: kernel {ms_k:.4f} ms device, {n_k:g} device "
-            f"kernels/call ({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)  library {lib_s}")
-    return out
+    return time_table(table, P * K, "stress")
 
 
 def profile_want(res):
@@ -1021,7 +948,9 @@ def check_client_loop(dev, smi):
         _, device, wall = profiled(fn)
         busy = sum(e.self_device_time_total for e in device) / 1e3
         log(f"    profiled once: wall {wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
-            f"{sum(e.count for e in device)} device kernels")
+            f"{sum(e.count for e in device)} device kernels, the port's CUDA kernels "
+            f"{port_kernels_ms(device):.3f} ms")
+        port_kernels_ms(device, "    in it")
     return counts
 
 
@@ -1054,10 +983,16 @@ def main() -> int:
     check_kernels(convert.ba_problem_from_numpy(problems.ragged_problem_arrays(), dev),
                   rng, "ragged")
     # the client's local-BA widths: C=40 cameras, P=4096 landmarks, K=16
-    # (rendered_ci_config) and K=32 (the default max_obs_per_mp) slots
+    # (rendered_ci_config) and K=32 (the default max_obs_per_mp) slots, and
+    # a ragged K=12 case (fixed cameras, invalid points, ids out of range)
+    local_inputs = {}
     for K in (16, 32):
-        check_kernels(problems.make_problem(C=40, P=4096, K=K, device=dev), rng,
-                      f"local BA K={K}")
+        local_inputs[K] = check_kernels(problems.make_problem(C=40, P=4096, K=K, device=dev),
+                                        rng, f"local BA K={K}")[1]
+    ragged12 = problems.small_ba_problem_arrays(P=3001, K=12, C=37, seed=12, fixed=5)
+    ragged12["cam_idx"][~ragged12["obs_valid"]] = -1  # local BA's padding, on camera 0
+    ragged12["cam_idx"][:4, 0] = [-1, 37, 40, -3]
+    check_kernels(convert.ba_problem_from_numpy(ragged12, dev), rng, "ragged K=12")
     Cr = 37
     v = torch.as_tensor(rng.standard_normal((Cr, 5)).astype(np.float32), device=dev)
     ci = torch.as_tensor(rng.integers(-3, Cr + 3, 999).astype(np.int32), device=dev)
@@ -1140,13 +1075,24 @@ def main() -> int:
     # -- phase 4: times ------------------------------------------------------
     log(f"[times] kernels at bench shapes; {smi}")
     times = kernel_timings(inputs)
+    log(f"[times] normal_blocks and cam_reduce at the client's local-BA shape; {smi}")
+    local = local_inputs[16]
+    time_table({"normal_blocks": blocks_entry(bk, local["prob"], local["csr"]),
+                "cam_reduce": reduce_entry(bk, local["prob"])}, 4096 * 16, "local BA")
+    # every kernel is timed before the first long profiler window (the solve
+    # below): windows after one have lost a few device events
+    stress = convert.ba_problem_from_numpy(problems.stress_problem_arrays(), dev)
+    log(f"[times] normal_blocks, cam_reduce and make_schur_matvec at the stress shape; {smi}")
+    new_times = stress_timings(stress, rng)
+    log(f"[times] hamming_top2; {smi}")
+    top2_times = hamming_timing(dev)
     walls = time_solve(bench, 20, 5)
     wall = statistics.median(walls)
-    kernel_ms = sum(gba[name] * times[name][0] for name in times)
+    port_ms = sum(gba[name] * times[name]["ms"] for name in times)
     log(f"[times] ba_solve C=128 P=32768 K=8, 20 iterations, 5 runs: "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; median {wall * 1e3:.2f} ms, "
         f"{wall / 20 * 1e3:.3f} ms per LM iteration ({20 / wall:.1f} iters/s); the port's "
-        f"kernels {kernel_ms:.2f} ms of it by device time ({gba['schur_off'] - 20} CG "
+        f"kernels {port_ms:.2f} ms of it by device time ({gba['schur_off'] - 20} CG "
         f"steps, one host sync each)")
     profile_solve(bench)
     phase_done(4)
@@ -1178,18 +1124,14 @@ def main() -> int:
 
     # -- phase 8: front-end times ----------------------------------------------
     log(f"[times] front-end at 752x480; {smi}")
-    top2_times = hamming_timing(dev)
     front_end_timings(fe, frames, m_idx, m_ok, reloc_tr, reloc_frame)
     phase_done(8)
 
     # -- phase 9: cam_reduce and make_schur_matvec against their plain versions
     log("[kernels] cam_reduce and make_schur_matvec against their plain versions")
-    stress = convert.ba_problem_from_numpy(problems.stress_problem_arrays(), dev)
     reduce_err = check_cam_reduce(dev)
     matvec_err = check_schur_matvec({"server GBA C=128 P=32768 K=8": bench,
                                      "stress C=1024 P=131072 K=8": stress}, rng)
-    log(f"[times] cam_reduce and make_schur_matvec at the stress shape; {smi}")
-    new_times = new_kernel_timings(stress, rng)
     phase_done(9)
 
     # -- phase 10: the GBA profiling path ---------------------------------------
@@ -1205,25 +1147,18 @@ def main() -> int:
     check_client_loop(dev, smi)
     phase_done(11)
 
-    kernels = []
-    for name, replaces, _ in KERNELS:
-        t_ms, plain_ms, bound_ms, bound_by, lib_ms = times[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=gba[name], max_abs_err=errs[name], ms=t_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-    t_ms, plain_ms, bound_ms, bound_by = top2_times
-    kernels.append(dict(
-        name="hamming_top2", route="cuda", source=HAMMING_SOURCE, replaces=f"{PALLAS}:121",
-        launches=reloc["hamming_top2"], max_abs_err=hamming_err, ms=t_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
+    # its windows miscounted, the CUDA-event time
+    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+                    launches=gba[name], max_abs_err=errs[name], **times[name])
+               for name, replaces, _ in KERNELS]
+    kernels.append(dict(name="hamming_top2", route="cuda", source=HAMMING_SOURCE,
+                        replaces=f"{PALLAS}:121", launches=reloc["hamming_top2"],
+                        max_abs_err=hamming_err, **top2_times))
     for name, replaces, err in (("cam_reduce", f"{PALLAS}:284", reduce_err),
                                 ("schur_matvec", f"{PALLAS}:496", matvec_err)):
-        t_ms, plain_ms, bound_ms, bound_by, lib_ms = new_times[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=prof_counts[name], max_abs_err=err, ms=t_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        kernels.append(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+                            launches=prof_counts[name], max_abs_err=err, **new_times[name]))
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

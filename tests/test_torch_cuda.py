@@ -76,6 +76,73 @@ def test_schur_ops_kernels(name):
         close(fk(x), fp(x), 1e-4, 1e-4)
 
 
+def client_problem(name, dev):
+    """The client's local-BA widths (C=40 cameras, P=4096 landmarks) at K=16
+    (rendered_ci_config) and K=32 (the default max_obs_per_mp), and a ragged
+    K=12 case with fixed cameras, invalid points and out-of-range ids."""
+    if name == "local_ba_k16":
+        return problems.make_problem(C=40, P=4096, K=16, device=dev)
+    if name == "local_ba_k32":
+        return problems.make_problem(C=40, P=4096, K=32, device=dev)
+    arr = problems.small_ba_problem_arrays(P=3001, K=12, C=37, seed=12, fixed=5)
+    arr["cam_idx"][~arr["obs_valid"]] = -1  # local BA's padding: camera 0 spans many chunks
+    arr["cam_idx"][:4, 0] = [-1, 37, 40, -3]
+    return convert.ba_problem_from_numpy(arr, dev)
+
+
+@pytest.mark.parametrize("name", ["local_ba_k16", "local_ba_k32", "ragged_k12"])
+def test_normal_blocks_kernel_client_shapes(name):
+    """One thread per observation, camera sums through CamCSR.order: equal
+    to the plain version, fixed cameras exactly zero, bit-identical rerun."""
+    prob = client_problem(name, card())
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    bk.reset_launch_counts()
+    ours = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    again = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    assert bk.launch_counts()["normal_blocks"] == 2
+    ref = bk.normal_blocks_plain(*args(prob), prob.cam_fixed, prob.intr, DELTA)
+    for a, b in zip(ours[:5], ref[:5]):
+        close(a, b, 5e-3, 1e-5)
+    assert abs(float(ours[5]) - float(ref[5])) < 1e-4 * abs(float(ref[5])) + 1e-2
+    fixed = prob.cam_fixed.nonzero().flatten()
+    assert float(ours[0][fixed].abs().max()) == 0.0 and float(ours[3][fixed].abs().max()) == 0.0
+    for x, y in zip(ours, again):
+        assert torch.equal(x, y)
+
+
+def test_normal_blocks_kernel_wide_landmarks():
+    """K=300 slots: 512-thread point blocks of one landmark, above 48 KB of
+    shared memory (the kernel's opt-in path); equal to the plain version."""
+    dev = card()
+    arr = problems.small_ba_problem_arrays(P=64, K=300, C=37, seed=300, fixed=3)
+    prob = convert.ba_problem_from_numpy(arr, dev)
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    assert bk.point_layout(300) == (512, 1)
+    ours = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    ref = bk.normal_blocks_plain(*args(prob), prob.cam_fixed, prob.intr, DELTA)
+    for a, b in zip(ours[:5], ref[:5]):
+        close(a, b, 5e-3, 1e-5)
+    assert abs(float(ours[5]) - float(ref[5])) < 1e-4 * abs(float(ref[5])) + 1e-2
+
+
+def test_cam_reduce_kernel_stress_shape():
+    """E=1,048,576 rows into C=1024 cameras (the GBA stress shape), a tenth
+    of the ids out of range: dropped; bit-identical on a rerun."""
+    dev = card()
+    g = torch.Generator(device="cpu").manual_seed(1024)
+    E, C = 1048576, 1024
+    y = torch.randn(E, 6, generator=g).to(dev)
+    ci = torch.randint(0, C, (E,), generator=g, dtype=torch.int32)
+    bad = torch.rand(E, generator=g) < 0.1
+    ci[bad] = torch.where(torch.rand(E, generator=g) < 0.5, -1, C + 7)[bad].to(torch.int32)
+    ci = ci.to(dev)
+    csr = bk.reduce_csr(ci, C)
+    ours, again = bk.cam_reduce(y, ci, C, csr), bk.cam_reduce(y, ci, C, csr)
+    close(ours, bk.cam_reduce_plain(y, ci, C), 1e-4, 1e-5)
+    assert torch.equal(ours, again)
+    assert int(csr.offsets[C]) == E - int(bad.sum())
+
+
 def test_cam_broadcast_kernel():
     dev = card()
     g = torch.Generator(device="cpu").manual_seed(1)

@@ -1,0 +1,166 @@
+"""Device times of the port's kernel wrappers against their bounds.
+
+One yardstick for ``chip_smoke.py`` and ``tools/time_ba_kernels.py``: a
+wrapper's time is the profiler's device time per call, taken only from a
+window whose device kernels per call equal what the wrapper launches
+(``DEVICE_KERNELS``); the CUDA-event time stands in after three windows
+that miscount, and the result says so (``ms_by``).  Imports torch only: the
+kernels module is passed in, so a caller can time any checkout's port.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOP_PER_S = 67e12    # H100 SXM fp32, outside the tensor cores
+HUBER = 2.447651936
+REPS = 100                 # wrapper calls per timing window
+
+# device kernels one wrapper call launches
+DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=2, schur_rhs=2, schur_wtv=1,
+                      cam_broadcast=1, cam_reduce=2, schur_matvec=2, hamming_top2=2)
+LIBRARY = dict(cam_broadcast="index_select",
+               cam_reduce="index_add_, float atomics: not deterministic")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def event_ms(fn, reps):
+    """Mean time per call over ``reps`` back-to-back calls, CUDA events:
+    host dispatch included wherever it outlasts the device work."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_events(fn):
+    """torch.profiler's averages of the device kernels that ``fn`` runs, and
+    the wall ms of ``fn`` under the profiler (its start and stop left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return device, wall_ms
+
+
+def device_ms(fn, reps):
+    """(device ms per call, device kernels per call) over ``reps`` calls:
+    the summed time of the device kernels the calls ran, from torch.profiler,
+    so host dispatch and the gaps between launches are left out.  None for
+    the time when the profiler saw no device activity."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    device, _ = device_events(loop)
+    busy_us = sum(e.self_device_time_total for e in device)
+    n = sum(e.count for e in device) / reps
+    return (busy_us / 1e3 / reps if busy_us > 0 else None), n
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def kernel_ms(fn, reps, want):
+    """(ms, ms_by, device kernels per call, event ms) of a kernel wrapper:
+    the profiler's device time per call when it counted ``want`` device
+    kernels per call (what the wrapper launches), ``ms_by`` "device".  The
+    profiler loses events now and then, so a window that counts otherwise
+    is measured again, up to three windows in all; after that the CUDA-event
+    time stands in and ``ms_by`` is "events"."""
+    ev = event_ms(fn, reps)
+    for _ in range(3):
+        ms, n = device_ms(fn, reps)
+        if ms is not None and n == want:
+            return ms, "device", n, ev
+    log(f"    profiler counted {n:g} device kernels per call where the wrapper launches "
+        f"{want}, in three windows: the time below is by CUDA events")
+    return ev, "events", n, ev
+
+
+def bound(n_bytes, n_ops, ops_per_s=FP32_FLOP_PER_S):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_table(table, E, label):
+    """Time every entry of ``table`` {name: (kernel fn, plain fn, bytes,
+    flops per observation, library fn or None, device kernels per call)} on
+    a problem of E observations; returns {name: dict(ms, ms_by, plain_ms,
+    bound_ms, bound_by, library_ms)}, the keys of a kernel's result line."""
+    out = {}
+    for name, (fk, fp, n_bytes, flops_per_obs, flib, want) in table.items():
+        ms, ms_by, n_k, ev = kernel_ms(fk, REPS, want)
+        plain_ms, n_p = device_ms(fp, REPS // 5)
+        lib_ms = device_ms(flib, REPS)[0] if flib is not None else None
+        bound_ms, bound_by = bound(n_bytes, flops_per_obs * E)
+        out[name] = dict(ms=ms, ms_by=ms_by, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        lib_s = f"{lib_ms:.4f} ({LIBRARY[name]})" if lib_ms is not None else "none"
+        log(f"  {name:<14} {label}: kernel {ms:.4f} ms by {ms_by}, {n_k:g} device "
+            f"kernels/call ({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms, {n_p:g} "
+            f"kernels/call  bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)  "
+            f"library {lib_s}")
+    return out
+
+
+def problem_args(prob):
+    return (prob.R, prob.t, prob.X, prob.point_valid, prob.cam_idx, prob.uv,
+            prob.sigma2, prob.obs_valid)
+
+
+def reduce_entry(bk, prob):
+    """The ``time_table`` entry of ``bk.cam_reduce`` on a problem's
+    observations: an [E,6] array (a CG vector's per-observation rows)
+    reduced by the clipped camera ids, the CSR built once (as
+    ``pcg_transitions`` builds it); ``index_add_`` into zeros as the library
+    call."""
+    C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
+    E = P * K
+    dev = prob.R.device
+    ci = prob.cam_idx.reshape(-1).clamp(0, C - 1).contiguous()
+    csr = bk.reduce_csr(ci, C)
+    y = torch.randn(E, 6, generator=torch.Generator(device="cpu").manual_seed(E)).to(dev)
+    ci_l = ci.long()
+    return (lambda: bk.cam_reduce(y, ci, C, csr), lambda: bk.cam_reduce_plain(y, ci, C),
+            nbytes(y, ci, torch.empty(C, 6)), 1,
+            lambda: torch.zeros(C, 6, device=dev).index_add_(0, ci_l, y),
+            DEVICE_KERNELS["cam_reduce"])
+
+
+def blocks_entry(bk, prob, csr):
+    """The ``time_table`` entry of ``bk.normal_blocks`` on a problem."""
+    C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
+    args, intr = problem_args(prob), prob.intr.contiguous()
+    return (lambda: bk.normal_blocks(*args, prob.cam_fixed, intr, HUBER, csr),
+            lambda: bk.normal_blocks_plain(*args, prob.cam_fixed, intr, HUBER),
+            nbytes(*args, prob.cam_fixed, intr, torch.empty(P, K, 6, 3), torch.empty(P, 3, 3),
+                   torch.empty(P, 3), torch.empty(C, 6, 6), torch.empty(C, 6),
+                   torch.empty((), dtype=torch.float32)), 400, None,
+            DEVICE_KERNELS["normal_blocks"])
