@@ -29,23 +29,27 @@
 //  - per-camera sums go through a camera CSR (observations stably sorted
 //    by camera, built once per solve since cam_idx is constant across LM
 //    and CG iterations): camera c owns sorted slots offsets[c]..offsets[c+1],
-//    `order[j]` is the observation in slot j and `pos[e]` its inverse.  The
-//    Schur kernels write each observation's row to its slot pos[e] for
-//    seg_sum to add in slot order; normal_blocks' camera side and
-//    cam_reduce read the slots through `order`, chunk by chunk, and add the
-//    chunk sums in chunk order;
+//    `order[j]` is the observation in slot j and `pos[e]` its inverse.  rhs
+//    writes each observation's row to its slot pos[e] for seg_sum to add in
+//    slot order; normal_blocks' camera side, off's camera side and
+//    cam_reduce read the slots through `order`, one block per chunk of
+//    `chunk` slots, and add each camera's chunk sums in a fixed order;
 //  - costs: per-block tree sums, then one block sums the partials in order.
+//
+// The per-observation kernels (normal_blocks' point kernel, off's point
+// kernel, reproj_cost) share one layout: one thread per OBSERVATION in
+// blocks of floor(256/K) whole landmarks (or one landmark in a power-of-two
+// block above K=256), so a landmark never straddles two blocks and even
+// local BA's 65,536 observations fill the card.
 //
 // normal_blocks (three kernels: point, camera, finish).  Its byte bound is
 // 0.0076 ms at the server-GBA shape and 0.0018 ms at the local-BA shape;
 // it runs in ~0.033 and ~0.014 ms (H100 80GB HBM3, 700 W, chip_smoke.py):
-//  * point kernel: one thread per OBSERVATION (256-thread blocks of
-//    floor(256/K) whole landmarks, so a landmark never straddles two
-//    blocks), which fills the card even at local BA's 65,536 observations.
-//    W is staged as the block's [obs,18] tile in shared memory and written
-//    out contiguously; V, g_p and the cost go through shared memory and one
-//    thread per (landmark, entry) sums its K slots in slot order.  Bound by
-//    the bytes it moves (~54% of the HBM rate at E=262144).
+//  * point kernel: W is staged as the block's [obs,18] tile in shared
+//    memory and written out contiguously; V, g_p and the cost go through
+//    shared memory and one thread per (landmark, entry) sums its K slots in
+//    slot order.  Bound by the bytes it moves (~54% of the HBM rate at
+//    E=262144).
 //  * camera kernel: one block per chunk (each camera's CSR segment cut into
 //    pieces of `chunk` slots, so a camera with many observations -- local
 //    BA's padding slots all clamp to camera 0 -- still gets many blocks)
@@ -57,6 +61,37 @@
 //    an in-order sum over warps combine them.  Bound by the latency of the
 //    gathers through `order`.  The finish kernel adds each camera's chunk
 //    rows in chunk order and sums the point kernel's cost partials.
+//
+// schur_off (three kernels: point, chunk, combine; make_schur_matvec runs
+// the same).  Its byte bound (W, Vinv, ids, v and the output, each once)
+// is 0.0063 ms at the server-GBA shape, 0.0092 ms at the client's
+// initialization BA (C=160, P=24,576, K=16) and 0.0252 ms at the stress
+// shape (C=1024, P=131,072, K=8); it runs in ~0.019, ~0.026 and ~0.080 ms
+// (H100 80GB HBM3, 700 W, tools/time_ba_kernels.py), where one thread per
+// landmark writing rows to pos[e] for a one-block-per-camera seg_sum took
+// 0.043, 0.54 and 0.21:
+//  * point kernel: the block's W tile is loaded once, coalesced, into shared
+//    memory and serves both W^T v and W y2, so W crosses HBM once; y3_e =
+//    W_e y2_p is written per observation, in observation order, through a
+//    shared tile.  Bound by the bytes it moves (~2.1-2.6 TB/s).
+//  * chunk kernel: cam_reduce's, one block per chunk of a camera's CSR
+//    segment, gathers y3[order[j]] (24 B rows at random, from L2 at the
+//    bench shape, from HBM at the stress shape, where the point kernel's
+//    75 MB of W evict them): bound by that gather.
+//  * combine kernel: one block per camera adds its chunk sums, so the
+//    initialization BA's camera 0 (nearly all 393,216 slots: 768 chunks)
+//    costs each thread three rows; one block summing its slots took 0.54 ms.
+//
+// reproj_cost (two kernels: cost, sum of partials).  Its byte bound is
+// 0.0015 ms at the server-GBA shape and 0.0003 ms at local BA's; it runs in
+// ~0.008 and ~0.005 ms, where one thread per landmark (16 blocks at local
+// BA, a serial chain of 16 observations each) took 0.009 and 0.014.  Each
+// thread reads its observation coalesced and gathers its camera through
+// L1; the block partials and the final pass are normal_blocks' own, so the
+// two costs agree bit for bit.  Bound by the per-observation work (21-24 ps
+// an observation at the server-GBA and stress shapes; a camera table
+// staged in shared memory measured slower) and, at local BA, by two
+// launches' latency.
 //
 // cam_reduce (two kernels: chunk sums, then their combination).  Its byte
 // bound at E=1,048,576, C=1024, F=6 is 0.0088 ms; it runs in ~0.023 ms,
@@ -83,10 +118,12 @@
 namespace {
 
 constexpr int kThreads = 256;   // per-landmark kernels, partial sums, camera-major kernels
+constexpr int kMaxThreads = 1024;  // per-observation blocks: point_layout's largest
 constexpr int kSegThreads = 512;
 constexpr int kRowF = 42;       // a camera's U (36) + g_c (6) row
 constexpr int kWStride = 19;    // shared W tile row: 18 floats, odd stride (no bank conflicts)
 constexpr int kVStride = 13;    // shared V (9) | g_p (3) | rho row
+constexpr int kYStride = 7;     // shared y1 (3) or y3 (6) row of schur_off, odd stride
 constexpr int kCamAcc = 27;     // U upper triangle (21) + g_c (6)
 
 __device__ __forceinline__ int clamp_cam(int c, int C) {
@@ -132,15 +169,13 @@ struct Obs {
   float rho;       // Huber cost
 };
 
-__device__ __forceinline__ Obs observe(const float* __restrict__ R,
-                                       const float* __restrict__ t, int c,
-                                       float X0, float X1, float X2, bool point_ok,
-                                       int e, const float* __restrict__ uv,
+// Rc, tc: the observing camera's rotation (9 floats, row-major) and translation.
+__device__ __forceinline__ Obs observe(const float* Rc, const float* tc, float X0, float X1,
+                                       float X2, bool point_ok, int e,
+                                       const float* __restrict__ uv,
                                        const float* __restrict__ sigma2,
                                        const uint8_t* __restrict__ obs_valid,
                                        const float* __restrict__ intr, float delta) {
-  const float* Rc = R + 9 * c;
-  const float* tc = t + 3 * c;
   Obs o;
   o.x = Rc[0] * X0 + Rc[1] * X1 + Rc[2] * X2 + tc[0];
   o.y = Rc[3] * X0 + Rc[4] * X1 + Rc[5] * X2 + tc[1];
@@ -183,7 +218,9 @@ __device__ __forceinline__ void jacobians(const float* __restrict__ Rc, const Ob
 }
 
 // ---------------------------------------------------------------------------
-// Cost: one thread per landmark over its K slots, block tree sum -> partials.
+// Cost: one thread per observation in blocks of L whole landmarks (thread
+// l*K + k is slot k of the block's landmark l: normal_blocks' point
+// layout), block tree sum -> one partial per block.
 // ---------------------------------------------------------------------------
 __global__ void reproj_cost_kernel(const float* __restrict__ R, const float* __restrict__ t,
                                    const float* __restrict__ X,
@@ -192,30 +229,38 @@ __global__ void reproj_cost_kernel(const float* __restrict__ R, const float* __r
                                    const float* __restrict__ uv,
                                    const float* __restrict__ sigma2,
                                    const uint8_t* __restrict__ obs_valid,
-                                   const float* __restrict__ intr, int C, int P, int K,
+                                   const float* __restrict__ intr, int C, int P, int K, int L,
                                    float delta, float* __restrict__ partials) {
-  __shared__ float sh[kThreads];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.0f;
-  if (p < P) {
-    const float X0 = X[3 * p], X1 = X[3 * p + 1], X2 = X[3 * p + 2];
-    const bool point_ok = point_valid[p];
-    for (int k = 0; k < K; ++k) {
-      const int e = p * K + k;
-      const int c = clamp_cam(cam_idx[e], C);
-      acc += observe(R, t, c, X0, X1, X2, point_ok, e, uv, sigma2, obs_valid, intr, delta).rho;
-    }
+  __shared__ float sh[kMaxThreads];
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * L;
+  const int l = tid / K;
+  float rho = 0.0f;
+  if (l < min(L, P - p0)) {
+    const int p = p0 + l;
+    const int e = p * K + (tid - l * K);
+    const int c = clamp_cam(cam_idx[e], C);
+    rho = observe(R + 9 * c, t + 3 * c, X[3 * p], X[3 * p + 1], X[3 * p + 2], point_valid[p], e,
+                  uv, sigma2, obs_valid, intr, delta).rho;
   }
-  const float s = block_sum(acc, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  const float s = block_sum(rho, sh);
+  if (tid == 0) partials[blockIdx.x] = s;
 }
 
-// Fixed-order sum of n partials into out[0] (one block).
+// Fixed-order sum of n partials into out[0] (one block of kThreads).
 __global__ void sum_partials_kernel(const float* __restrict__ partials, int n,
                                     float* __restrict__ out) {
   __shared__ float sh[kThreads];
   float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partials[i];
+  int i = threadIdx.x;
+  for (; i + 7 * kThreads < n; i += 8 * kThreads) {  // eight loads in flight, added in order
+    float x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = partials[i + u * kThreads];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += x[u];
+  }
+  for (; i < n; i += kThreads) acc += partials[i];
   const float s = block_sum(acc, sh);
   if (threadIdx.x == 0) out[0] = s;
 }
@@ -293,8 +338,8 @@ __global__ void normal_blocks_point_kernel(const float* __restrict__ R,
     const int p = p0 + l;
     const int e = p * K + (tid - l * K);
     const int c = clamp_cam(cam_idx[e], C);
-    const Obs o = observe(R, t, c, X[3 * p], X[3 * p + 1], X[3 * p + 2], point_valid[p], e, uv,
-                          sigma2, obs_valid, intr, delta);
+    const Obs o = observe(R + 9 * c, t + 3 * c, X[3 * p], X[3 * p + 1], X[3 * p + 2],
+                          point_valid[p], e, uv, sigma2, obs_valid, intr, delta);
     rho = o.rho;
     float Jc0[6], Jc1[6], Jp0[3], Jp1[3];
     jacobians(R + 9 * c, o, intr[0], intr[1], cam_fixed[c], Jc0, Jc1, Jp0, Jp1);
@@ -392,8 +437,8 @@ __global__ void normal_blocks_camera_kernel(const float* __restrict__ R,
     for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
       const int e = order[j];
       const int p = e / K;
-      const Obs o = observe(R, t, c, X[3 * p], X[3 * p + 1], X[3 * p + 2], point_valid[p], e,
-                            uv, sigma2, obs_valid, intr, delta);
+      const Obs o = observe(R + 9 * c, t + 3 * c, X[3 * p], X[3 * p + 1], X[3 * p + 2],
+                            point_valid[p], e, uv, sigma2, obs_valid, intr, delta);
       float Jc0[6], Jc1[6], Jp0[3], Jp1[3];
       jacobians(R + 9 * c, o, intr[0], intr[1], false, Jc0, Jc1, Jp0, Jp1);
       int q = 0;
@@ -454,37 +499,78 @@ __global__ void normal_blocks_finish_kernel(const float* __restrict__ cam_part,
 // Schur operators over W [P,K,6,3] (row-major: W_e[i][j] at e*18 + 3i + j).
 // ---------------------------------------------------------------------------
 
-// off, point side: y2_p = Vinv_p sum_k W_pk^T v[ci_pk]; then the
-// per-observation W_pk y2_p goes to its camera-sorted slot.
-__global__ void schur_off_kernel(const float* __restrict__ v, const float* __restrict__ W,
-                                 const float* __restrict__ Vinv, const int* __restrict__ cam_idx,
-                                 const int* __restrict__ pos, int C, int P, int K,
-                                 float* __restrict__ rows) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float y1[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < K; ++k) {
-    const int e = p * K + k;
-    const float* vc = v + 6 * clamp_cam(cam_idx[e], C);
-    const float* We = W + (size_t)e * 18;
+// off, point side: one thread per observation in blocks of L whole
+// landmarks (thread l*K + k is slot k of the block's landmark l).  The
+// block's [obs,18] W tile is staged in shared memory with coalesced loads
+// and serves both products, so W is read from HBM once: y1_e = W_e^T
+// v[ci_e] per observation; y1_p = sum_k y1_pk in slot order, one thread per
+// (landmark, component); y2_p = Vinv_p y1_p and y3_e = W_e y2_p per
+// observation, staged and written to y3 [E,6] in observation order.
+__global__ void schur_off_point_kernel(const float* __restrict__ v, const float* __restrict__ W,
+                                       const float* __restrict__ Vinv,
+                                       const int* __restrict__ cam_idx, int C, int P, int K,
+                                       int L, float* __restrict__ y3) {
+  extern __shared__ float smem[];
+  const int T = blockDim.x;
+  float* shW = smem;                  // [T][kWStride]: the W tile
+  float* shY = smem + T * kWStride;   // [T][kYStride]: y1_e, later y3_e
+  float* shS = shY + T * kYStride;    // [L][3]: y1_p
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * L;
+  const int nl = min(L, P - p0);      // landmarks in this block
+  const int n_obs = nl * K;
+  const size_t base = (size_t)p0 * K;  // the block's first observation
+  const float* Wb = W + base * 18;
+#pragma unroll
+  for (int r = 0; r < 18; ++r) {  // n_obs <= T, so 18 rounds cover the tile
+    const int q = r * T + tid;
+    if (q < n_obs * 18) {
+      const int i = q / 18;
+      shW[i * kWStride + (q - i * 18)] = Wb[q];
+    }
+  }
+  __syncthreads();
+  const bool live = tid < n_obs;
+  const float* w = shW + tid * kWStride;
+  float* y = shY + tid * kYStride;
+  if (live) {
+    const float* vc = v + 6 * clamp_cam(cam_idx[base + tid], C);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) s += We[3 * i + j] * vc[i];
-      y1[j] += s;
+      for (int i = 0; i < 6; ++i) s += w[3 * i + j] * vc[i];
+      y[j] = s;
     }
   }
-  const float* Vi = Vinv + 9 * p;
-  float y2[3];
+  __syncthreads();
+  for (int q = tid; q < nl * 3; q += T) {
+    const int ll = q / 3;
+    const float* src = shY + ll * K * kYStride + (q - ll * 3);
+    float s = 0.0f;
+    for (int k = 0; k < K; ++k) s += src[k * kYStride];
+    shS[q] = s;
+  }
+  __syncthreads();  // shY is free again: it stages y3
+  if (live) {
+    const int l = tid / K;
+    const float* Vi = Vinv + 9 * (size_t)(p0 + l);
+    const float* y1 = shS + 3 * l;
+    float y2[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) y2[i] = Vi[3 * i] * y1[0] + Vi[3 * i + 1] * y1[1] + Vi[3 * i + 2] * y1[2];
-  for (int k = 0; k < K; ++k) {
-    const int e = p * K + k;
-    const float* We = W + (size_t)e * 18;
-    float* row = rows + (size_t)pos[e] * 6;
+    for (int i = 0; i < 3; ++i) y2[i] = Vi[3 * i] * y1[0] + Vi[3 * i + 1] * y1[1] + Vi[3 * i + 2] * y1[2];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) row[i] = We[3 * i] * y2[0] + We[3 * i + 1] * y2[1] + We[3 * i + 2] * y2[2];
+    for (int i = 0; i < 6; ++i) y[i] = w[3 * i] * y2[0] + w[3 * i + 1] * y2[1] + w[3 * i + 2] * y2[2];
+  }
+  __syncthreads();
+  float* yb = y3 + base * 6;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    const int q = r * T + tid;
+    if (q < n_obs * 6) {
+      const int i = q / 6;
+      yb[q] = shY[i * kYStride + (q - i * 6)];
+    }
   }
 }
 
@@ -594,6 +680,37 @@ __global__ void cam_reduce_combine_kernel(const float* __restrict__ part,
   out[i] = v;
 }
 
+// off, camera side: out[c] = the sum of camera c's chunk rows part[b] (6
+// floats, from cam_reduce_kernel over y3), one block per camera: thread tid
+// adds chunks chunks[c] + tid, + blockDim, ... in order; a shuffle tree per
+// warp and an in-order sum over warps combine them.  A camera of hundreds
+// of chunks (the initialization BA's padding slots all sit on camera 0)
+// costs each thread a few rows, where one thread per (camera, column), as
+// in cam_reduce_combine_kernel, walks them all.
+__global__ void schur_off_combine_kernel(const float* __restrict__ part,
+                                         const int* __restrict__ chunks,
+                                         float* __restrict__ out) {
+  __shared__ float sh[6][kThreads / 32];
+  const int c = blockIdx.x;
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int b = chunks[c] + threadIdx.x; b < chunks[c + 1]; b += blockDim.x) {
+#pragma unroll
+    for (int f = 0; f < 6; ++f) acc[f] += part[(size_t)b * 6 + f];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float v = warp_sum(acc[f]);
+    if (lane == 0) sh[f][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    float v = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += sh[threadIdx.x][w];
+    out[(size_t)c * 6 + threadIdx.x] = v;
+  }
+}
+
 // Grid of the camera-major kernels: sum over cameras of ceil(len / chunk)
 // is at most E / chunk + C; blocks past the last chunk return at once.
 unsigned chunk_grid(long long E, int C, int chunk) { return (unsigned)(E / chunk + C); }
@@ -604,16 +721,19 @@ extern "C" {
 
 const char* ccm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// partials: [max(1, ceil(P/256))] scratch; out: [1].
+// Blocks of `threads` (a power of two >= L*K) with L landmarks each;
+// partials: [max(1, ceil(P/L))] scratch; out: [1].
 int ccm_reproj_cost(const float* R, const float* t, const float* X, const uint8_t* point_valid,
                     const int* cam_idx, const float* uv, const float* sigma2,
                     const uint8_t* obs_valid, const float* intr, int C, int P, int K,
-                    float delta, float* partials, float* out, void* stream) {
+                    int threads, int L, float delta, float* partials, float* out,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = n_blocks(P);
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const int nb = P > 0 ? (P + L - 1) / L : 0;
   if (nb > 0)
-    reproj_cost_kernel<<<nb, kThreads, 0, s>>>(R, t, X, point_valid, cam_idx, uv, sigma2,
-                                               obs_valid, intr, C, P, K, delta, partials);
+    reproj_cost_kernel<<<nb, threads, 0, s>>>(R, t, X, point_valid, cam_idx, uv, sigma2,
+                                              obs_valid, intr, C, P, K, L, delta, partials);
   sum_partials_kernel<<<1, kThreads, 0, s>>>(partials, nb, out);
   return (int)cudaGetLastError();
 }
@@ -652,14 +772,28 @@ int ccm_normal_blocks(const float* R, const float* t, const float* X,
   return (int)cudaGetLastError();
 }
 
-// out [C,6]; rows [P*K,6] scratch.
+// out [C,6].  The point kernel runs ceil(P/L) blocks of `threads` (a power
+// of two >= L*K) and writes y3 [P*K,6] scratch; the camera side sums y3
+// through the camera CSR (order [E], offsets [C+1], chunks [C+1]) chunk by
+// chunk into part [P*K/chunk + C, 6] scratch, then per camera.
 int ccm_schur_off(const float* v, const float* W, const float* Vinv, const int* cam_idx,
-                  const int* pos, const int* offsets, int C, int P, int K, float* rows,
-                  float* out, void* stream) {
+                  const int* order, const int* offsets, const int* chunks, int C, int P, int K,
+                  int threads, int L, int chunk, float* y3, float* part, float* out,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = n_blocks(P);
-  if (nb > 0) schur_off_kernel<<<nb, kThreads, 0, s>>>(v, W, Vinv, cam_idx, pos, C, P, K, rows);
-  launch_seg_sum(rows, offsets, C, 6, out, s);
+  const int nb = P > 0 ? (P + L - 1) / L : 0;
+  if (nb > 0) {
+    const size_t smem = ((size_t)threads * (kWStride + kYStride) + 3 * L) * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          schur_off_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    schur_off_point_kernel<<<nb, threads, smem, s>>>(v, W, Vinv, cam_idx, C, P, K, L, y3);
+  }
+  cam_reduce_kernel<<<chunk_grid((long long)P * K, C, chunk), kThreads, 0, s>>>(
+      y3, order, offsets, chunks, C, chunk, 6, part);
+  schur_off_combine_kernel<<<C, kThreads, 0, s>>>(part, chunks, out);
   return (int)cudaGetLastError();
 }
 

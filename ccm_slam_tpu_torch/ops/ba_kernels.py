@@ -48,15 +48,15 @@ LAUNCHES = {
     "schur_matvec": 0,
 }
 
-_THREADS = 256  # per-landmark and camera-major block size in csrc/ba_kernels.cu
+_THREADS = 256  # block size of csrc/ba_kernels.cu's per-observation kernels
 _ROW_F = 42     # a camera's U (36) + g_c (6) row
 CHUNK = 512     # CSR slots per block of the camera-major kernels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ccm_reproj_cost": [_P] * 9 + [_I, _I, _I, _F] + [_P] * 3,
+    "ccm_reproj_cost": [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3,
     "ccm_normal_blocks": [_P] * 10 + [_I] * 6 + [_F] + [_P] * 11,
-    "ccm_schur_off": [_P] * 6 + [_I, _I, _I] + [_P] * 3,
+    "ccm_schur_off": [_P] * 7 + [_I] * 6 + [_P] * 4,
     "ccm_schur_rhs": [_P] * 4 + [_I, _I, _I] + [_P] * 3,
     "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
     "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
@@ -114,11 +114,12 @@ class CamCSR:
 
     cam_idx is constant across LM and CG iterations, so this is built once
     per solve.  Camera c owns sorted slots ``offsets[c]:offsets[c+1]``;
-    ``order[j]`` is the observation in slot j and ``pos`` its inverse.  The
-    Schur kernels write each observation's row into its slot ``pos[e]`` for
-    one segment kernel to sum in order; ``normal_blocks``' camera kernel
-    reads the observations of each camera through ``order``, one block per
-    chunk of ``CHUNK`` slots (camera c owns chunks ``chunks[c]:chunks[c+1]``).
+    ``order[j]`` is the observation in slot j and ``pos`` its inverse.
+    ``schur_ops``' rhs writes each observation's row into its slot ``pos[e]``
+    for one segment kernel to sum in order; ``normal_blocks``' camera kernel
+    and ``schur_ops``' off read the observations of each camera through
+    ``order``, one block per chunk of ``CHUNK`` slots (camera c owns chunks
+    ``chunks[c]:chunks[c+1]``).
     """
 
     C: int
@@ -281,10 +282,6 @@ def schur_matvec_plain(W, Vinv, cam_idx, C: int):
 # ---------------------------------------------------------------------------
 
 
-def _n_blocks(n: int) -> int:
-    return max(1, -(-n // _THREADS))
-
-
 def _chunk_rows(E: int, C: int) -> int:
     """Rows of the camera-major kernels' per-chunk scratch: the chunks of
     ``CHUNK`` slots number at most E // CHUNK + C."""
@@ -292,11 +289,12 @@ def _chunk_rows(E: int, C: int) -> int:
 
 
 def point_layout(K: int) -> tuple:
-    """(threads, L) of ``normal_blocks``' point kernel: blocks of ``threads``
-    (256, or the power of two at or above K) holding L = threads // K whole
+    """(threads, L) of the per-observation kernels (``normal_blocks``' point
+    kernel, ``reproj_cost``, ``schur_ops``' off): blocks of ``threads`` (256,
+    or the power of two at or above K) holding L = threads // K whole
     landmarks, one thread per observation slot."""
     if not 1 <= K <= 1024:
-        raise ValueError(f"normal_blocks: K={K} slots; the card takes 1 to 1024")
+        raise ValueError(f"K={K} observation slots; the card's kernels take 1 to 1024")
     threads = _THREADS if K <= _THREADS else 1 << (K - 1).bit_length()
     return threads, threads // K
 
@@ -311,11 +309,12 @@ def reproj_cost(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid, intr,
     if not _on_card(dev):
         return reproj_cost_plain(R, t, X, point_valid, cam_idx, uv, sigma2, obs_valid,
                                  intr, huber_delta)
-    partials = torch.empty(_n_blocks(P), dtype=torch.float32, device=dev)
+    threads, L = point_layout(K)
+    partials = torch.empty(max(1, -(-P // L)), dtype=torch.float32, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
     _launch("ccm_reproj_cost", dev, _ptr(R), _ptr(t), _ptr(X), _ptr(point_valid),
             _ptr(cam_idx), _ptr(uv), _ptr(sigma2), _ptr(obs_valid), _ptr(intr),
-            C, P, K, float(huber_delta), _ptr(partials), _ptr(cost))
+            C, P, K, threads, L, float(huber_delta), _ptr(partials), _ptr(cost))
     LAUNCHES["reproj_cost"] += 1
     return cost
 
@@ -365,16 +364,21 @@ def _check_schur(W, Vinv, csr: CamCSR):
 
 
 def _schur_off(W, Vinv, csr: CamCSR, counter: str):
-    """``off`` on the card: ccm_schur_off, counted under ``counter``."""
+    """``off`` on the card: ccm_schur_off, counted under ``counter``.  Its
+    scratch (the per-observation rows y3 and the per-chunk sums) is
+    allocated once per operator: calls run in stream order."""
     P, K, dev = _check_schur(W, Vinv, csr)
     C = csr.C
+    threads, L = point_layout(K)
+    y3 = torch.empty(P * K, 6, dtype=torch.float32, device=dev)
+    part = torch.empty(_chunk_rows(P * K, C), 6, dtype=torch.float32, device=dev)
 
     def off(v):
         _check("v", v, torch.float32, (C, 6), dev)
-        rows = torch.empty(P * K, 6, dtype=torch.float32, device=dev)
         out = torch.empty(C, 6, dtype=torch.float32, device=dev)
         _launch("ccm_schur_off", dev, _ptr(v), _ptr(W), _ptr(Vinv), _ptr(csr.ci),
-                _ptr(csr.pos), _ptr(csr.offsets), C, P, K, _ptr(rows), _ptr(out))
+                _ptr(csr.order), _ptr(csr.offsets), _ptr(csr.chunks), C, P, K, threads, L,
+                CHUNK, _ptr(y3), _ptr(part), _ptr(out))
         LAUNCHES[counter] += 1
         return out
 

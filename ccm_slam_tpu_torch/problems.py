@@ -10,7 +10,9 @@ draws, the same arrays as its counterpart on the reference side:
   stress_problem_arrays    benchmarks/stress.make_stress_problem
 
 ``ragged_problem_arrays`` (no counterpart) holds the kernels to their edge
-cases: odd sizes and out-of-range camera indices.  ``client_map_arrays``
+cases: odd sizes and out-of-range camera indices.  ``init_ba_problem_arrays``
+(no counterpart) is the client's initialization BA as the tracker lays it
+out: two keyframes in a 160 x 24,576 x 16 arena, every empty slot on camera 0.  ``client_map_arrays``
 (no counterpart) is a small client map with frames around it, as plain
 arrays, so both packages' map, tracking and mapping stages start from the
 same state.
@@ -182,6 +184,45 @@ def stress_problem_arrays(n_agents=8, kf_per_agent=128, n_landmarks=131072, K=8,
         obs_valid=Xc[..., 2] > 1.0,
         cam_fixed=np.arange(C) < 2,
         point_valid=np.ones(P, bool),
+        **_intrinsics(),
+    )
+
+
+def init_ba_problem_arrays(C=160, P=24576, K=16, n_points=1000, seed=0) -> dict:
+    """The client's initialization BA as ``runtime.tracking.build_ba_problem``
+    lays it out under ``rendered_ci_config`` (160 keyframe slots, 24,576
+    landmark slots, K=16): keyframe 0 at the origin (fixed) and keyframe 1
+    0.1 m to its right observe ``n_points`` landmarks in slots 0 and 1 (0.5 px
+    noise, perturbed pose and points).  Every other slot is invalid with
+    camera index 0, as the clamped ``obs_kf`` of -1 leaves it, so camera 0
+    owns nearly all P*K slots; the other landmarks are invalid and the 158
+    empty keyframe slots fixed, as dead keyframes are."""
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(-4, 4, (P, 3)).astype(np.float32)
+    X[:, 2] += 8.0
+    R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    t = np.zeros((C, 3), np.float32)
+    t[1, 0] = -0.1  # centre (0.1, 0, 0): t = -R c
+    cam_idx = np.zeros((P, K), np.int32)
+    cam_idx[:n_points, 1] = 1
+    fx, fy, cx, cy = INTRINSICS
+    Xc = X[:, None, :] + t[cam_idx]
+    uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fy * Xc[..., 1] / Xc[..., 2] + cy],
+                  -1).astype(np.float32)
+    uv += rs.randn(P, K, 2).astype(np.float32) * 0.5
+    obs_valid = np.zeros((P, K), bool)
+    obs_valid[:n_points, :2] = True
+    t[1] += rs.randn(3).astype(np.float32) * 0.01
+    return dict(
+        R=R,
+        t=t,
+        X=X + rs.randn(P, 3).astype(np.float32) * 0.02,
+        cam_idx=cam_idx,
+        uv=uv,
+        sigma2=np.ones((P, K), np.float32),
+        obs_valid=obs_valid,
+        cam_fixed=np.arange(C) != 1,
+        point_valid=np.arange(P) < n_points,
         **_intrinsics(),
     )
 

@@ -10,7 +10,8 @@ closure.
   pose Jacobians: they still constrain landmarks through V and g_p but
   receive no update.
 * Two reduced-camera-system solvers, chosen by shape: the dense Schur
-  complement with a Cholesky solve for local-BA sizes (C <= 96), matrix-free
+  complement with a Cholesky solve for local-BA sizes (C <= 96, or
+  ``CCM_PCG_MIN_C`` when set, as the reference reads it), matrix-free
   block-Jacobi PCG beyond.
 * Every LM iteration computes the trial cost and accepts or rejects it with
   ``torch.where``, so LM itself needs no host round-trip; the CG loop stops
@@ -25,6 +26,7 @@ On CUDA tensors the per-observation work runs in the hand-written kernels of
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import torch
@@ -33,7 +35,12 @@ from ..ops import ba_kernels
 from ..utils.lie import orthonormalize, se3_exp
 from . import reproj
 
-PCG_MIN_C = 96  # C above this takes the matrix-free PCG branch
+PCG_MIN_C = 96  # C above this takes the matrix-free PCG branch (unless overridden)
+
+
+def pcg_min_c() -> int:
+    """The branch threshold: ``CCM_PCG_MIN_C`` when set, else PCG_MIN_C."""
+    return int(os.environ.get("CCM_PCG_MIN_C", PCG_MIN_C))
 
 
 @dataclass
@@ -301,7 +308,7 @@ def ba_solve(prob: BAProblem, iters: int = 20, huber_delta: float = 2.447651936,
     """
     C = prob.R.shape[0]
     dev = prob.R.device
-    use_pcg = C > PCG_MIN_C
+    use_pcg = C > pcg_min_c()
     csr = ba_kernels.cam_csr(prob.cam_idx, C)
 
     def cost_fn(R, t, X):

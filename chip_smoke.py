@@ -9,17 +9,21 @@ entry points with the launch counts set to 0 before each path and held to
 that path's own expected counts after it:
 
   1. device and build;
-  2. the BA kernels at the server-GBA shapes, on a ragged case and at the
+  2. the BA kernels at the server-GBA shapes, on a ragged case, at the
      client's local-BA widths (K=16 and K=32 observation slots, and a ragged
-     K=12 case), each bit-identical on a rerun;
+     K=12 case) and at its initialization BA's (C=160, P=24,576, K=16, every
+     empty slot on camera 0), each bit-identical on a rerun;
   3. server-scale global BA (PCG branch), local-BA-size BA (dense branch, at
      K=8, 16 and 32), an interrupted (chunked) solve, the pose-only step;
   4. kernel times, all taken before the first long profiler window: every
      BA kernel (``cam_reduce`` included) at the server-GBA shapes,
-     ``normal_blocks`` and ``cam_reduce`` at the client's local-BA shape
-     (C=40, P=4096, K=16), ``normal_blocks``, ``cam_reduce`` and
+     ``normal_blocks``, ``cam_reduce`` and ``reproj_cost`` at the client's
+     local-BA shape (C=40, P=4096, K=16), ``reproj_cost``, the Schur
+     operators and ``normal_blocks`` at its initialization BA's,
+     ``normal_blocks``, ``cam_reduce``, ``reproj_cost`` and
      ``make_schur_matvec`` at the stress shape (C=1024, P=131,072, K=8),
-     ``hamming_top2`` at 1024 x 16384; then the solve's wall and device time;
+     ``hamming_top2`` at 1024 x 16384; then the solve's wall and device
+     time;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
      of the targets invalid, a ragged case, invalid queries, a single valid
      target -- equal outputs, and bit-identical on a second run;
@@ -34,9 +38,9 @@ that path's own expected counts after it:
      local-map gate), checked against ground truth;
   8. front-end step times (medians of 5 runs with their spread);
   9. ``cam_reduce`` (F=6 and 42 at the server-GBA and stress shapes, and a
-     ragged case whose ids -1 and >= C must be dropped) and
-     ``make_schur_matvec`` (server-GBA and stress shapes) against their plain
-     versions, bit-identical on a rerun;
+     ragged case whose ids -1 and >= C must be dropped),
+     ``make_schur_matvec`` (server-GBA and stress shapes) and ``reproj_cost``
+     (stress shape) against their plain versions, bit-identical on a rerun;
  10. the GBA profiling path: ``profile_gba`` at the stress shape (C=1024,
      P=131,072, K=8), every component's device time;
  11. the single-agent client loop at full width: ``Tracker.process_image``
@@ -82,9 +86,9 @@ from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
-from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, device_events,
-                                 device_ms, kernel_ms, log, nbytes, problem_args, reduce_entry,
-                                 time_table)
+from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, cost_entry,
+                                 device_events, device_ms, kernel_ms, log, nbytes, off_entry,
+                                 problem_args, reduce_entry, schur_inputs, time_table)
 
 POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
@@ -103,8 +107,9 @@ KERNELS = [
 
 # the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix)
 CUDA_KERNELS = ("reproj_cost", "normal_blocks_point", "normal_blocks_camera",
-                "normal_blocks_finish", "seg_sum", "sum_partials", "schur_off", "schur_rhs",
-                "schur_wtv", "cam_broadcast", "cam_reduce", "cam_reduce_combine")
+                "normal_blocks_finish", "seg_sum", "sum_partials", "schur_off_point",
+                "schur_off_combine", "schur_rhs", "schur_wtv", "cam_broadcast", "cam_reduce",
+                "cam_reduce_combine")
 # the bootstrap pair and the relocalization frame of
 # RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
 # JAX package's own errors on that pair against ground truth (rotation,
@@ -226,6 +231,7 @@ def check_kernels(prob, rng, label):
     for part, a, b in zip(("U", "V", "W", "g_c", "g_p"), out_k[:5], out_p[:5]):
         nb_err = max(nb_err, compare(f"normal_blocks.{part}", a, b, TOL_BLOCKS, 1e-5))
     compare_cost("normal_blocks.cost", out_k[5], out_p[5])
+    log(f"  reproj_cost equals normal_blocks.cost bit for bit: {torch.equal(cost_k, out_k[5])}")
     errs["normal_blocks"] = nb_err
     rerun("normal_blocks", blocks_fn, out_k)
     U, V, W = out_k[0], out_k[1], out_k[2]
@@ -258,38 +264,41 @@ def check_kernels(prob, rng, label):
     return errs, inputs
 
 
+def rhs_wtv_entries(inp):
+    """``time_table`` entries of ``schur_ops``' rhs and wtv on a problem's
+    ``check_kernels`` inputs."""
+    prob, csr, W, Vinv, v, q = (inp[k] for k in ("prob", "csr", "W", "Vinv", "v", "q"))
+    C, (P, _) = prob.R.shape[0], prob.cam_idx.shape
+    _, rhs_k, wtv_k = bk.schur_ops(W, Vinv, csr)
+    _, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
+    flops = dict((name, f) for name, _, f in KERNELS)
+    return {
+        "schur_rhs": (lambda: rhs_k(q), lambda: rhs_p(q),
+                      nbytes(q, W, prob.cam_idx, torch.empty(C, 6)), flops["schur_rhs"], None,
+                      DEVICE_KERNELS["schur_rhs"]),
+        "schur_wtv": (lambda: wtv_k(v), lambda: wtv_p(v),
+                      nbytes(v, W, prob.cam_idx, torch.empty(P, 3)), flops["schur_wtv"], None,
+                      DEVICE_KERNELS["schur_wtv"]),
+    }
+
+
 def kernel_timings(inp):
     """``time_table``'s result for every kernel at the bench shapes,
     cam_reduce included."""
-    prob, intr, csr = inp["prob"], inp["intr"], inp["csr"]
-    C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
-    E = P * K
-    args = problem_args(prob)
-    W, Vinv, v, q, Rt, ci = (inp[k] for k in ("W", "Vinv", "v", "q", "Rt", "ci"))
-    off_k, rhs_k, wtv_k = bk.schur_ops(W, Vinv, csr)
-    off_p, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
-    scalar = torch.empty((), dtype=torch.float32)
-    c6, p3 = torch.empty(C, 6), torch.empty(P, 3)
-    flops = dict((name, f) for name, _, f in KERNELS)
+    prob, csr, W, Vinv, v, Rt, ci = (inp[k] for k in ("prob", "csr", "W", "Vinv", "v", "Rt",
+                                                      "ci"))
+    E = prob.cam_idx.numel()
     table = {
-        "reproj_cost": (
-            lambda: bk.reproj_cost(*args, intr, HUBER),
-            lambda: bk.reproj_cost_plain(*args, intr, HUBER),
-            nbytes(*args, intr, scalar), flops["reproj_cost"], None),
-        "normal_blocks": blocks_entry(bk, prob, csr)[:5],
-        "schur_off": (lambda: off_k(v), lambda: off_p(v),
-                      nbytes(v, W, Vinv, prob.cam_idx, c6), flops["schur_off"], None),
-        "schur_rhs": (lambda: rhs_k(q), lambda: rhs_p(q),
-                      nbytes(q, W, prob.cam_idx, c6), flops["schur_rhs"], None),
-        "schur_wtv": (lambda: wtv_k(v), lambda: wtv_p(v),
-                      nbytes(v, W, prob.cam_idx, p3), flops["schur_wtv"], None),
+        "reproj_cost": cost_entry(bk, prob),
+        "normal_blocks": blocks_entry(bk, prob, csr),
+        "schur_off": off_entry(bk, prob, W, Vinv, v),
+        **rhs_wtv_entries(inp),
         "cam_broadcast": (
             lambda: bk.cam_broadcast(Rt, ci), lambda: bk.cam_broadcast_plain(Rt, ci),
             nbytes(Rt, ci, torch.empty(E, Rt.shape[1])), 0,
-            lambda: torch.index_select(Rt, 0, ci)),
+            lambda: torch.index_select(Rt, 0, ci), DEVICE_KERNELS["cam_broadcast"]),
+        "cam_reduce": reduce_entry(bk, prob),
     }
-    table = {name: (*entry, DEVICE_KERNELS[name]) for name, entry in table.items()}
-    table["cam_reduce"] = reduce_entry(bk, prob)
     return time_table(table, E, "bench")
 
 
@@ -665,7 +674,7 @@ def hamming_timing(dev):
     device times from the profiler; the bound from this run's valid pairs
     (the kernel skips invalid targets) at 16 popcounts per clock per SM."""
     q, qv, t, tv = top2_cases(dev)["1024x16384"]
-    ms, ms_by, n, ev = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50,
+    ms, ms_by, n, ev, _ = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50,
                                  DEVICE_KERNELS["hamming_top2"])
     plain_ms, _ = device_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
     clock = sm_clock_mhz() * 1e6
@@ -760,21 +769,13 @@ def check_cam_reduce(dev):
     return err
 
 
-def schur_inputs(prob):
-    """(W, Vinv) of a problem's first normal-equation pass, damped at 1e-4."""
-    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
-    _, V, W, _, _, _ = bk.normal_blocks(*problem_args(prob), prob.cam_fixed,
-                                        prob.intr.contiguous(), HUBER, csr)
-    return W, ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=W.device))).contiguous()
-
-
 def check_schur_matvec(probs, rng):
     """make_schur_matvec against schur_matvec_plain on each problem, bit-
     identical on a rerun; returns the max abs error."""
     err = 0.0
     for label, prob in probs.items():
         C = prob.R.shape[0]
-        W, Vinv = schur_inputs(prob)
+        W, Vinv = schur_inputs(bk, ba, prob)
         v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=W.device)
         off = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)
         out, again = off(v), off(v)
@@ -787,20 +788,16 @@ def check_schur_matvec(probs, rng):
 
 
 def stress_timings(stress, rng):
-    """``time_table``'s result for normal_blocks, cam_reduce and
+    """``time_table``'s result for normal_blocks, cam_reduce, reproj_cost and
     make_schur_matvec at the stress shape, the profiling path's inputs."""
     C, (P, K) = stress.R.shape[0], stress.cam_idx.shape
-    dev = stress.R.device
-    W, Vinv = schur_inputs(stress)
-    v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=dev)
-    off_k = bk.make_schur_matvec(W, Vinv, stress.cam_idx, C)
-    off_p = bk.schur_matvec_plain(W, Vinv, stress.cam_idx, C)
+    W, Vinv = schur_inputs(bk, ba, stress)
+    v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=W.device)
     table = {
         "normal_blocks": blocks_entry(bk, stress, bk.cam_csr(stress.cam_idx, C)),
         "cam_reduce": reduce_entry(bk, stress),
-        "schur_matvec": (lambda: off_k(v), lambda: off_p(v),
-                         nbytes(v, W, Vinv, stress.cam_idx, torch.empty(C, 6)), 80, None,
-                         DEVICE_KERNELS["schur_matvec"]),
+        "reproj_cost": cost_entry(bk, stress),
+        "schur_matvec": off_entry(bk, stress, W, Vinv, v, "schur_matvec"),
     }
     return time_table(table, P * K, "stress")
 
@@ -993,6 +990,11 @@ def main() -> int:
     ragged12["cam_idx"][~ragged12["obs_valid"]] = -1  # local BA's padding, on camera 0
     ragged12["cam_idx"][:4, 0] = [-1, 37, 40, -3]
     check_kernels(convert.ba_problem_from_numpy(ragged12, dev), rng, "ragged K=12")
+    # the initialization BA: 160 keyframe slots, two of them live; every empty
+    # slot of the 24,576 x 16 landmark arena on camera 0
+    init_inputs = check_kernels(
+        convert.ba_problem_from_numpy(problems.init_ba_problem_arrays(), dev), rng,
+        "initialization BA")[1]
     Cr = 37
     v = torch.as_tensor(rng.standard_normal((Cr, 5)).astype(np.float32), device=dev)
     ci = torch.as_tensor(rng.integers(-3, Cr + 3, 999).astype(np.int32), device=dev)
@@ -1075,14 +1077,26 @@ def main() -> int:
     # -- phase 4: times ------------------------------------------------------
     log(f"[times] kernels at bench shapes; {smi}")
     times = kernel_timings(inputs)
-    log(f"[times] normal_blocks and cam_reduce at the client's local-BA shape; {smi}")
+    log(f"[times] normal_blocks, cam_reduce and reproj_cost at the client's local-BA shape; "
+        f"{smi}")
     local = local_inputs[16]
     time_table({"normal_blocks": blocks_entry(bk, local["prob"], local["csr"]),
-                "cam_reduce": reduce_entry(bk, local["prob"])}, 4096 * 16, "local BA")
+                "cam_reduce": reduce_entry(bk, local["prob"]),
+                "reproj_cost": cost_entry(bk, local["prob"])}, 4096 * 16, "local BA")
+    log(f"[times] reproj_cost, the Schur operators and normal_blocks at the initialization "
+        f"BA's shape; {smi}")
+    init = init_inputs["prob"]
+    time_table({"reproj_cost": cost_entry(bk, init),
+                "schur_off": off_entry(bk, init, *(init_inputs[k] for k in ("W", "Vinv", "v"))),
+                **rhs_wtv_entries(init_inputs),
+                "normal_blocks": blocks_entry(bk, init, init_inputs["csr"])},
+               init.cam_idx.numel(), "init BA")
+    del init, init_inputs
     # every kernel is timed before the first long profiler window (the solve
     # below): windows after one have lost a few device events
     stress = convert.ba_problem_from_numpy(problems.stress_problem_arrays(), dev)
-    log(f"[times] normal_blocks, cam_reduce and make_schur_matvec at the stress shape; {smi}")
+    log(f"[times] normal_blocks, cam_reduce, reproj_cost and make_schur_matvec at the stress "
+        f"shape; {smi}")
     new_times = stress_timings(stress, rng)
     log(f"[times] hamming_top2; {smi}")
     top2_times = hamming_timing(dev)
@@ -1127,11 +1141,17 @@ def main() -> int:
     front_end_timings(fe, frames, m_idx, m_ok, reloc_tr, reloc_frame)
     phase_done(8)
 
-    # -- phase 9: cam_reduce and make_schur_matvec against their plain versions
-    log("[kernels] cam_reduce and make_schur_matvec against their plain versions")
+    # -- phase 9: cam_reduce, make_schur_matvec and reproj_cost against plain --
+    log("[kernels] cam_reduce, make_schur_matvec and reproj_cost against their plain versions")
     reduce_err = check_cam_reduce(dev)
     matvec_err = check_schur_matvec({"server GBA C=128 P=32768 K=8": bench,
                                      "stress C=1024 P=131072 K=8": stress}, rng)
+    stress_cost = bk.reproj_cost(*problem_args(stress), stress.intr.contiguous(), HUBER)
+    compare_cost("reproj_cost stress", stress_cost,
+                 bk.reproj_cost_plain(*problem_args(stress), stress.intr.contiguous(), HUBER))
+    if not torch.equal(stress_cost, bk.reproj_cost(*problem_args(stress),
+                                                   stress.intr.contiguous(), HUBER)):
+        raise AssertionError("reproj_cost stress: rerun not bit-identical")
     phase_done(9)
 
     # -- phase 10: the GBA profiling path ---------------------------------------

@@ -6,10 +6,12 @@ Solver parity is held to the bounds of the JAX package's own parity check
 between its distributed and single-device GBA (__graft_entry__.py:144-148):
 final cost within 0.05*cost + 1e-3, camera centres within 5e-3."""
 
+import functools
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +62,39 @@ def test_ba_solve_matches_jax(branch):
     fixed = prob.cam_fixed
     torch.testing.assert_close(ours[0][fixed], prob.R[fixed], rtol=0, atol=1e-6)
     torch.testing.assert_close(ours[1][fixed], prob.t[fixed], rtol=0, atol=1e-6)
+
+
+def branches_taken(monkeypatch, module, solve):
+    """Names of the Schur solvers ``solve`` calls inside ``module``."""
+    taken = []
+    for name in ("_solve_schur", "_solve_schur_pcg"):
+        real = getattr(module, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+    solve()
+    return set(taken)
+
+
+@pytest.mark.parametrize("C,env,branch", [(96, None, "dense"), (97, None, "pcg"),
+                                          (97, "100", "dense"), (96, "50", "pcg")])
+def test_branch_threshold_reads_ccm_pcg_min_c_like_jax(monkeypatch, C, env, branch):
+    """Both packages take the PCG branch for C > CCM_PCG_MIN_C (96 when the
+    variable is unset), reading the variable when the solve starts (the
+    JAX solve when it is traced)."""
+    if env is None:
+        monkeypatch.delenv("CCM_PCG_MIN_C", raising=False)
+    else:
+        monkeypatch.setenv("CCM_PCG_MIN_C", env)
+    arr = problems.small_ba_problem_arrays(P=64, K=4, C=C)
+    want = {"dense": {"_solve_schur"}, "pcg": {"_solve_schur_pcg"}}[branch]
+    assert branches_taken(monkeypatch, tba, lambda: tba.ba_solve(
+        convert.ba_problem_from_numpy(arr, "cpu"), iters=1, with_stats=False)) == want
+    raw = functools.partial(jba.ba_solve.__wrapped__, iters=1, with_stats=False)
+    assert branches_taken(monkeypatch, jba, lambda: jax.eval_shape(raw, jax_problem(arr))) == want
 
 
 @pytest.mark.parametrize("branch", ["dense", "pcg"])

@@ -183,6 +183,95 @@ def test_make_schur_matvec_kernel(name):
     close(out, bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v), 1e-4, 1e-4)
 
 
+def skewed_schur_case(name, dev):
+    """(W, Vinv, cam_idx, C) with the initialization BA's layout (K=16, and
+    K=32 at a third of the landmark slots): random W, zero on the invalid
+    slots, which all sit on camera 0; or the GBA stress shape (C=1024,
+    P=131,072, K=8) with random W."""
+    g = torch.Generator(device="cpu").manual_seed(16)
+    if name == "stress":
+        ci = torch.randint(0, 1024, (131072, 8), generator=g, dtype=torch.int32)
+        ci = torch.sort(ci, dim=1).values
+        valid = torch.ones(ci.shape, dtype=torch.bool)
+    else:
+        K = 16 if name == "init_ba_k16" else 32
+        arr = problems.init_ba_problem_arrays(P=24576 if K == 16 else 8192, K=K)
+        ci, valid = torch.as_tensor(arr["cam_idx"]), torch.as_tensor(arr["obs_valid"])
+    P, K = ci.shape
+    W = torch.randn(P, K, 6, 3, generator=g) * valid[..., None, None]
+    Vinv = torch.randn(P, 3, 3, generator=g)
+    C = 1024 if name == "stress" else 160
+    return W.to(dev), Vinv.to(dev), ci.to(dev), C
+
+
+@pytest.mark.parametrize("name", ["init_ba_k16", "init_ba_k32", "stress"])
+def test_schur_off_kernel_skewed_and_stress(name):
+    """off through schur_ops and make_schur_matvec (the same kernels, each
+    under its own count): equal to the plain version, bit-identical rerun;
+    camera 0 owns nearly all slots at the initialization BA's layout."""
+    dev = card()
+    W, Vinv, ci, C = skewed_schur_case(name, dev)
+    v = torch.randn(C, 6, generator=torch.Generator(device="cpu").manual_seed(3)).to(dev)
+    ref = bk.schur_matvec_plain(W, Vinv, ci, C)(v)
+    bk.reset_launch_counts()
+    off = bk.schur_ops(W, Vinv, bk.cam_csr(ci, C))[0]
+    matvec = bk.make_schur_matvec(W, Vinv, ci, C)
+    outs = [off(v), off(v), matvec(v), matvec(v)]
+    counts = bk.launch_counts()
+    assert counts["schur_off"] == 2 and counts["schur_matvec"] == 2
+    for out in outs:
+        close(out, ref, 1e-4, 1e-4)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[3])
+
+
+@pytest.mark.parametrize("name", ["local_ba_k16", "ragged_k12", "nan_landmark"])
+def test_reproj_cost_kernel_client_shapes(name):
+    """One thread per observation: equal to the plain version, bit-identical
+    rerun; a NaN landmark gives a non-finite cost, as in the plain version."""
+    dev = card()
+    prob = client_problem("local_ba_k16" if name == "nan_landmark" else name, dev)
+    if name == "nan_landmark":
+        prob.X[123, 2] = float("nan")
+    bk.reset_launch_counts()
+    ours = bk.reproj_cost(*args(prob), prob.intr, DELTA)
+    again = bk.reproj_cost(*args(prob), prob.intr, DELTA)
+    assert bk.launch_counts()["reproj_cost"] == 2
+    ref = bk.reproj_cost_plain(*args(prob), prob.intr, DELTA)
+    if name == "nan_landmark":
+        assert not torch.isfinite(ours) and not torch.isfinite(ref)
+        return
+    assert abs(float(ours) - float(ref)) < 1e-4 * abs(float(ref)) + 1e-2
+    assert torch.equal(ours, again)
+
+
+def test_reproj_cost_equals_normal_blocks_cost():
+    """reproj_cost and normal_blocks' point kernel share the block layout,
+    the per-observation cost and both sums: the same cost bit for bit."""
+    prob = client_problem("ragged_k12", card())
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    cost = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)[5]
+    assert torch.equal(bk.reproj_cost(*args(prob), prob.intr, DELTA), cost)
+
+
+def test_off_and_cost_kernels_wide_landmarks():
+    """K=300 slots: 512-thread blocks of one landmark; schur_off's point
+    kernel then needs more than 48 KB of shared memory (its opt-in path)."""
+    dev = card()
+    prob = convert.ba_problem_from_numpy(
+        problems.small_ba_problem_arrays(P=64, K=300, C=37, seed=301, fixed=3), dev)
+    C = prob.R.shape[0]
+    csr = bk.cam_csr(prob.cam_idx, C)
+    _, V, W, _, _, cost = bk.normal_blocks(*args(prob), prob.cam_fixed, prob.intr, DELTA, csr)
+    ours = bk.reproj_cost(*args(prob), prob.intr, DELTA)
+    assert torch.equal(ours, cost)
+    ref = bk.reproj_cost_plain(*args(prob), prob.intr, DELTA)
+    assert abs(float(ours) - float(ref)) < 1e-4 * abs(float(ref)) + 1e-2
+    Vinv = ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=dev))).contiguous()
+    v = torch.randn(C, 6, generator=torch.Generator(device="cpu").manual_seed(4)).to(dev)
+    close(bk.schur_ops(W, Vinv, csr)[0](v), bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v),
+          1e-4, 1e-4)
+
+
 def test_tracker_step_on_card_matches_cpu():
     """The CPU tracker runs the synthetic arc to a tracked state; its state
     is copied to the card and both process the next frame: same path, same

@@ -10,6 +10,7 @@ kernels module is passed in, so a caller can time any checkout's port.
 
 from __future__ import annotations
 
+import re
 import time
 
 import torch
@@ -20,8 +21,8 @@ HUBER = 2.447651936
 REPS = 100                 # wrapper calls per timing window
 
 # device kernels one wrapper call launches
-DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=2, schur_rhs=2, schur_wtv=1,
-                      cam_broadcast=1, cam_reduce=2, schur_matvec=2, hamming_top2=2)
+DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=3, schur_rhs=2, schur_wtv=1,
+                      cam_broadcast=1, cam_reduce=2, schur_matvec=3, hamming_top2=2)
 LIBRARY = dict(cam_broadcast="index_select",
                cam_reduce="index_add_, float atomics: not deterministic")
 
@@ -61,11 +62,12 @@ def device_events(fn):
     return device, wall_ms
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, split=None):
     """(device ms per call, device kernels per call) over ``reps`` calls:
     the summed time of the device kernels the calls ran, from torch.profiler,
     so host dispatch and the gaps between launches are left out.  None for
-    the time when the profiler saw no device activity."""
+    the time when the profiler saw no device activity.  ``split``, a dict,
+    receives each device kernel's us per call by its function name."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -77,6 +79,12 @@ def device_ms(fn, reps):
     device, _ = device_events(loop)
     busy_us = sum(e.self_device_time_total for e in device)
     n = sum(e.count for e in device) / reps
+    if split is not None:
+        split.clear()
+        for e in device:
+            name = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+            key = name.group(1) if name else e.key[:40]
+            split[key] = split.get(key, 0.0) + e.self_device_time_total / reps
     return (busy_us / 1e3 / reps if busy_us > 0 else None), n
 
 
@@ -85,20 +93,22 @@ def nbytes(*xs):
 
 
 def kernel_ms(fn, reps, want):
-    """(ms, ms_by, device kernels per call, event ms) of a kernel wrapper:
-    the profiler's device time per call when it counted ``want`` device
-    kernels per call (what the wrapper launches), ``ms_by`` "device".  The
-    profiler loses events now and then, so a window that counts otherwise
-    is measured again, up to three windows in all; after that the CUDA-event
-    time stands in and ``ms_by`` is "events"."""
+    """(ms, ms_by, device kernels per call, event ms, split) of a kernel
+    wrapper: the profiler's device time per call when it counted ``want``
+    device kernels per call (what the wrapper launches), ``ms_by`` "device",
+    and ``split`` the us per call of each device kernel.  The profiler loses
+    events now and then, so a window that counts otherwise is measured
+    again, up to three windows in all; after that the CUDA-event time stands
+    in and ``ms_by`` is "events"."""
     ev = event_ms(fn, reps)
+    split = {}
     for _ in range(3):
-        ms, n = device_ms(fn, reps)
+        ms, n = device_ms(fn, reps, split)
         if ms is not None and n == want:
-            return ms, "device", n, ev
+            return ms, "device", n, ev, split
     log(f"    profiler counted {n:g} device kernels per call where the wrapper launches "
         f"{want}, in three windows: the time below is by CUDA events")
-    return ev, "events", n, ev
+    return ev, "events", n, ev, split
 
 
 def bound(n_bytes, n_ops, ops_per_s=FP32_FLOP_PER_S):
@@ -116,7 +126,7 @@ def time_table(table, E, label):
     bound_ms, bound_by, library_ms)}, the keys of a kernel's result line."""
     out = {}
     for name, (fk, fp, n_bytes, flops_per_obs, flib, want) in table.items():
-        ms, ms_by, n_k, ev = kernel_ms(fk, REPS, want)
+        ms, ms_by, n_k, ev, split = kernel_ms(fk, REPS, want)
         plain_ms, n_p = device_ms(fp, REPS // 5)
         lib_ms = device_ms(flib, REPS)[0] if flib is not None else None
         bound_ms, bound_by = bound(n_bytes, flops_per_obs * E)
@@ -127,6 +137,8 @@ def time_table(table, E, label):
             f"kernels/call ({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms, {n_p:g} "
             f"kernels/call  bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)  "
             f"library {lib_s}")
+        log(f"    {name} device kernels, us per call: "
+            + ", ".join(f"{k} {us:.2f}" for k, us in split.items()))
     return out
 
 
@@ -164,3 +176,35 @@ def blocks_entry(bk, prob, csr):
                    torch.empty(P, 3), torch.empty(C, 6, 6), torch.empty(C, 6),
                    torch.empty((), dtype=torch.float32)), 400, None,
             DEVICE_KERNELS["normal_blocks"])
+
+
+def cost_entry(bk, prob):
+    """The ``time_table`` entry of ``bk.reproj_cost`` on a problem."""
+    args, intr = problem_args(prob), prob.intr.contiguous()
+    return (lambda: bk.reproj_cost(*args, intr, HUBER),
+            lambda: bk.reproj_cost_plain(*args, intr, HUBER),
+            nbytes(*args, intr, torch.empty((), dtype=torch.float32)), 40, None,
+            DEVICE_KERNELS["reproj_cost"])
+
+
+def schur_inputs(bk, ba, prob):
+    """(W, Vinv) of a problem's first normal-equation pass, damped at 1e-4
+    (``ba`` is the port's ``solvers.ba``)."""
+    csr = bk.cam_csr(prob.cam_idx, prob.R.shape[0])
+    _, V, W, _, _, _ = bk.normal_blocks(*problem_args(prob), prob.cam_fixed,
+                                        prob.intr.contiguous(), HUBER, csr)
+    return W, ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=W.device))).contiguous()
+
+
+def off_entry(bk, prob, W, Vinv, v, name="schur_off"):
+    """The ``time_table`` entry of the off-diagonal Schur matvec on W, Vinv
+    and v [C,6]: ``schur_ops``' off (name "schur_off", the CSR built once per
+    solve) or ``make_schur_matvec`` ("schur_matvec")."""
+    C = prob.R.shape[0]
+    if name == "schur_off":
+        off_k = bk.schur_ops(W, Vinv, bk.cam_csr(prob.cam_idx, C))[0]
+    else:
+        off_k = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)
+    off_p = bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)
+    return (lambda: off_k(v), lambda: off_p(v),
+            nbytes(v, W, Vinv, prob.cam_idx, torch.empty(C, 6)), 80, None, DEVICE_KERNELS[name])
