@@ -28,19 +28,18 @@
 //    landmark's K contiguous slots in slot order;
 //  - per-camera sums go through a camera CSR (observations stably sorted
 //    by camera, built once per solve since cam_idx is constant across LM
-//    and CG iterations): camera c owns sorted slots offsets[c]..offsets[c+1],
-//    `order[j]` is the observation in slot j and `pos[e]` its inverse.  rhs
-//    writes each observation's row to its slot pos[e] for seg_sum to add in
-//    slot order; normal_blocks' camera side, off's camera side and
-//    cam_reduce read the slots through `order`, one block per chunk of
-//    `chunk` slots, and add each camera's chunk sums in a fixed order;
+//    and CG iterations): camera c owns sorted slots offsets[c]..offsets[c+1]
+//    and `order[j]` is the observation in slot j.  normal_blocks' camera
+//    side, the camera side of off and rhs, and cam_reduce read the slots
+//    through `order`, one block per chunk of `chunk` slots, and add each
+//    camera's chunk sums in a fixed order;
 //  - costs: per-block tree sums, then one block sums the partials in order.
 //
-// The per-observation kernels (normal_blocks' point kernel, off's point
-// kernel, reproj_cost) share one layout: one thread per OBSERVATION in
-// blocks of floor(256/K) whole landmarks (or one landmark in a power-of-two
-// block above K=256), so a landmark never straddles two blocks and even
-// local BA's 65,536 observations fill the card.
+// The per-observation kernels (normal_blocks' point kernel, the Schur point
+// kernel of off, rhs and wtv, reproj_cost) share one layout: one thread per
+// OBSERVATION in blocks of floor(256/K) whole landmarks (or one landmark in
+// a power-of-two block above K=256), so a landmark never straddles two
+// blocks and even local BA's 65,536 observations fill the card.
 //
 // normal_blocks (three kernels: point, camera, finish).  Its byte bound is
 // 0.0076 ms at the server-GBA shape and 0.0018 ms at the local-BA shape;
@@ -67,9 +66,7 @@
 // is 0.0063 ms at the server-GBA shape, 0.0092 ms at the client's
 // initialization BA (C=160, P=24,576, K=16) and 0.0252 ms at the stress
 // shape (C=1024, P=131,072, K=8); it runs in ~0.019, ~0.026 and ~0.080 ms
-// (H100 80GB HBM3, 700 W, tools/time_ba_kernels.py), where one thread per
-// landmark writing rows to pos[e] for a one-block-per-camera seg_sum took
-// 0.043, 0.54 and 0.21:
+// (H100 80GB HBM3, 700 W, tools/time_ba_kernels.py):
 //  * point kernel: the block's W tile is loaded once, coalesced, into shared
 //    memory and serves both W^T v and W y2, so W crosses HBM once; y3_e =
 //    W_e y2_p is written per observation, in observation order, through a
@@ -80,7 +77,22 @@
 //    75 MB of W evict them): bound by that gather.
 //  * combine kernel: one block per camera adds its chunk sums, so the
 //    initialization BA's camera 0 (nearly all 393,216 slots: 768 chunks)
-//    costs each thread three rows; one block summing its slots took 0.54 ms.
+//    costs each thread three rows.
+//
+// schur_rhs (the same three kernels, the point kernel writing y3_e = W_e
+// q_p) and schur_wtv (the point kernel alone, up to off's y1_p).  Their
+// byte bounds (W, ids, the input and the output, each once) are 0.0061 ms
+// at the server-GBA shape, 0.0090 ms at the initialization BA and 0.0243
+// ms at the stress shape.  rhs runs in ~0.017, ~0.022 and ~0.067 ms, wtv in
+// ~0.007, ~0.010 and ~0.039 ms (H100 80GB HBM3, 700 W,
+// tools/time_ba_kernels.py):
+//  * rhs: the point kernel moves W in and y3 out at ~3.0 TB/s (8.4 us at
+//    the server-GBA shape); the rest is off's camera side, bound by the
+//    chunk kernel's gather of y3 through `order` (6.9 us there).  Camera 0
+//    of the initialization BA is spread over its 768 chunks like any other
+//    camera's slots.
+//  * wtv: one pass over W, bound by the bytes it moves (1.1-1.6x the
+//    bound); its landmark sums take the slot order of off's y1_p.
 //
 // reproj_cost (two kernels: cost, sum of partials).  Its byte bound is
 // 0.0015 ms at the server-GBA shape and 0.0003 ms at local BA's; it runs in
@@ -119,7 +131,6 @@ namespace {
 
 constexpr int kThreads = 256;   // per-landmark kernels, partial sums, camera-major kernels
 constexpr int kMaxThreads = 1024;  // per-observation blocks: point_layout's largest
-constexpr int kSegThreads = 512;
 constexpr int kRowF = 42;       // a camera's U (36) + g_c (6) row
 constexpr int kWStride = 19;    // shared W tile row: 18 floats, odd stride (no bank conflicts)
 constexpr int kVStride = 13;    // shared V (9) | g_p (3) | rho row
@@ -264,46 +275,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials, int n,
   const float s = block_sum(acc, sh);
   if (threadIdx.x == 0) out[0] = s;
 }
-
-// ---------------------------------------------------------------------------
-// Camera segment sum: out[c, f] = sum over sorted slots j in
-// [offsets[c], offsets[c+1]) of rows[j, f].  Block (FX, NY): x walks the
-// columns (a warp reads contiguous floats), y strides over the camera's rows;
-// the NY partials are tree-summed in shared memory.  One block per camera.
-// ---------------------------------------------------------------------------
-__global__ void seg_sum_kernel(const float* __restrict__ rows, const int* __restrict__ offsets,
-                               int F, float* __restrict__ out) {
-  __shared__ float sh[kSegThreads];
-  const int c = blockIdx.x;
-  const int beg = offsets[c], end = offsets[c + 1];
-  const int FX = blockDim.x, NY = blockDim.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int f0 = 0; f0 < F; f0 += FX) {
-    const int f = f0 + tx;
-    float acc = 0.0f;
-    if (f < F) {
-      for (int j = beg + ty; j < end; j += NY) acc += rows[(size_t)j * F + f];
-    }
-    sh[ty * FX + tx] = acc;
-    __syncthreads();
-    for (int s = NY / 2; s > 0; s >>= 1) {
-      if (ty < s) sh[ty * FX + tx] += sh[(ty + s) * FX + tx];
-      __syncthreads();
-    }
-    if (ty == 0 && f < F) out[(size_t)c * F + f] = sh[tx];
-    __syncthreads();
-  }
-}
-
-void launch_seg_sum(const float* rows, const int* offsets, int C, int F, float* out,
-                    cudaStream_t stream) {
-  if (C <= 0) return;
-  const int FX = F <= 8 ? 8 : (F <= 16 ? 16 : 32);
-  const dim3 block(FX, kSegThreads / FX);
-  seg_sum_kernel<<<C, block, 0, stream>>>(rows, offsets, F, out);
-}
-
-int n_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 // ---------------------------------------------------------------------------
 // Normal equations, point side: one thread per observation.  A block of
@@ -499,17 +470,25 @@ __global__ void normal_blocks_finish_kernel(const float* __restrict__ cam_part,
 // Schur operators over W [P,K,6,3] (row-major: W_e[i][j] at e*18 + 3i + j).
 // ---------------------------------------------------------------------------
 
-// off, point side: one thread per observation in blocks of L whole
-// landmarks (thread l*K + k is slot k of the block's landmark l).  The
-// block's [obs,18] W tile is staged in shared memory with coalesced loads
-// and serves both products, so W is read from HBM once: y1_e = W_e^T
-// v[ci_e] per observation; y1_p = sum_k y1_pk in slot order, one thread per
-// (landmark, component); y2_p = Vinv_p y1_p and y3_e = W_e y2_p per
-// observation, staged and written to y3 [E,6] in observation order.
-__global__ void schur_off_point_kernel(const float* __restrict__ v, const float* __restrict__ W,
-                                       const float* __restrict__ Vinv,
-                                       const int* __restrict__ cam_idx, int C, int P, int K,
-                                       int L, float* __restrict__ y3) {
+// What the point kernel computes (schur_point_kernel's template argument).
+enum SchurStage { kOff, kRhs, kWtv };
+
+// The Schur operators' point side: one thread per observation in blocks of
+// L whole landmarks (thread l*K + k is slot k of the block's landmark l).
+// The block's [obs,18] W tile is staged in shared memory with coalesced
+// loads, so W is read from HBM once per call.
+//  kOff: y1_e = W_e^T v[ci_e] per observation; y1_p = sum_k y1_pk in slot
+//        order, one thread per (landmark, component); y2_p = Vinv_p y1_p
+//        and y3_e = W_e y2_p per observation, staged and written to out
+//        [E,6] in observation order.
+//  kRhs: y3_e = W_e q_p (x = q [P,3]) per observation, written as kOff's.
+//  kWtv: kOff's y1_p (the same products, summed in the same order), written
+//        to out [P,3] coalesced.
+template <int kStage>
+__global__ void schur_point_kernel(const float* __restrict__ x, const float* __restrict__ W,
+                                   const float* __restrict__ Vinv,
+                                   const int* __restrict__ cam_idx, int C, int P, int K, int L,
+                                   float* __restrict__ out) {
   extern __shared__ float smem[];
   const int T = blockDim.x;
   float* shW = smem;                  // [T][kWStride]: the W tile
@@ -531,39 +510,53 @@ __global__ void schur_off_point_kernel(const float* __restrict__ v, const float*
   }
   __syncthreads();
   const bool live = tid < n_obs;
+  const int l = tid / K;
   const float* w = shW + tid * kWStride;
   float* y = shY + tid * kYStride;
-  if (live) {
-    const float* vc = v + 6 * clamp_cam(cam_idx[base + tid], C);
+  float y2[3] = {0.0f, 0.0f, 0.0f};
+  if (kStage == kRhs) {
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+      for (int i = 0; i < 3; ++i) y2[i] = x[3 * (size_t)(p0 + l) + i];
+    }
+  } else {
+    if (live) {
+      const float* vc = x + 6 * clamp_cam(cam_idx[base + tid], C);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) s += w[3 * i + j] * vc[i];
+        y[j] = s;
+      }
+    }
+    __syncthreads();
+    for (int q = tid; q < nl * 3; q += T) {
+      const int ll = q / 3;
+      const float* src = shY + ll * K * kYStride + (q - ll * 3);
       float s = 0.0f;
+      for (int k = 0; k < K; ++k) s += src[k * kYStride];
+      if (kStage == kWtv)
+        out[(size_t)p0 * 3 + q] = s;
+      else
+        shS[q] = s;
+    }
+    if (kStage == kWtv) return;
+    __syncthreads();  // shY is free again: it stages y3
+    if (live) {
+      const float* Vi = Vinv + 9 * (size_t)(p0 + l);
+      const float* y1 = shS + 3 * l;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) s += w[3 * i + j] * vc[i];
-      y[j] = s;
+      for (int i = 0; i < 3; ++i)
+        y2[i] = Vi[3 * i] * y1[0] + Vi[3 * i + 1] * y1[1] + Vi[3 * i + 2] * y1[2];
     }
   }
-  __syncthreads();
-  for (int q = tid; q < nl * 3; q += T) {
-    const int ll = q / 3;
-    const float* src = shY + ll * K * kYStride + (q - ll * 3);
-    float s = 0.0f;
-    for (int k = 0; k < K; ++k) s += src[k * kYStride];
-    shS[q] = s;
-  }
-  __syncthreads();  // shY is free again: it stages y3
   if (live) {
-    const int l = tid / K;
-    const float* Vi = Vinv + 9 * (size_t)(p0 + l);
-    const float* y1 = shS + 3 * l;
-    float y2[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) y2[i] = Vi[3 * i] * y1[0] + Vi[3 * i + 1] * y1[1] + Vi[3 * i + 2] * y1[2];
 #pragma unroll
     for (int i = 0; i < 6; ++i) y[i] = w[3 * i] * y2[0] + w[3 * i + 1] * y2[1] + w[3 * i + 2] * y2[2];
   }
   __syncthreads();
-  float* yb = y3 + base * 6;
+  float* yb = out + base * 6;
 #pragma unroll
   for (int r = 0; r < 6; ++r) {
     const int q = r * T + tid;
@@ -572,45 +565,6 @@ __global__ void schur_off_point_kernel(const float* __restrict__ v, const float*
       yb[q] = shY[i * kYStride + (q - i * 6)];
     }
   }
-}
-
-// rhs, per observation: W_pk q_p to its camera-sorted slot.
-__global__ void schur_rhs_kernel(const float* __restrict__ q, const float* __restrict__ W,
-                                 const int* __restrict__ pos, int P, int K,
-                                 float* __restrict__ rows) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const float q0 = q[3 * p], q1 = q[3 * p + 1], q2 = q[3 * p + 2];
-  for (int k = 0; k < K; ++k) {
-    const int e = p * K + k;
-    const float* We = W + (size_t)e * 18;
-    float* row = rows + (size_t)pos[e] * 6;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) row[i] = We[3 * i] * q0 + We[3 * i + 1] * q1 + We[3 * i + 2] * q2;
-  }
-}
-
-// wtv, per landmark: sum_k W_pk^T v[ci_pk].
-__global__ void schur_wtv_kernel(const float* __restrict__ v, const float* __restrict__ W,
-                                 const int* __restrict__ cam_idx, int C, int P, int K,
-                                 float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float y[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < K; ++k) {
-    const int e = p * K + k;
-    const float* vc = v + 6 * clamp_cam(cam_idx[e], C);
-    const float* We = W + (size_t)e * 18;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) s += We[3 * i + j] * vc[i];
-      y[j] += s;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) out[3 * p + j] = y[j];
 }
 
 // ---------------------------------------------------------------------------
@@ -680,13 +634,13 @@ __global__ void cam_reduce_combine_kernel(const float* __restrict__ part,
   out[i] = v;
 }
 
-// off, camera side: out[c] = the sum of camera c's chunk rows part[b] (6
-// floats, from cam_reduce_kernel over y3), one block per camera: thread tid
-// adds chunks chunks[c] + tid, + blockDim, ... in order; a shuffle tree per
-// warp and an in-order sum over warps combine them.  A camera of hundreds
-// of chunks (the initialization BA's padding slots all sit on camera 0)
-// costs each thread a few rows, where one thread per (camera, column), as
-// in cam_reduce_combine_kernel, walks them all.
+// The camera side of off and rhs: out[c] = the sum of camera c's chunk rows
+// part[b] (6 floats, from cam_reduce_kernel over y3), one block per camera:
+// thread tid adds chunks chunks[c] + tid, + blockDim, ... in order; a
+// shuffle tree per warp and an in-order sum over warps combine them.  A
+// camera of hundreds of chunks (the initialization BA's padding slots all
+// sit on camera 0) costs each thread a few rows, where one thread per
+// (camera, column), as in cam_reduce_combine_kernel, walks them all.
 __global__ void schur_off_combine_kernel(const float* __restrict__ part,
                                          const int* __restrict__ chunks,
                                          float* __restrict__ out) {
@@ -714,6 +668,34 @@ __global__ void schur_off_combine_kernel(const float* __restrict__ part,
 // Grid of the camera-major kernels: sum over cameras of ceil(len / chunk)
 // is at most E / chunk + C; blocks past the last chunk return at once.
 unsigned chunk_grid(long long E, int C, int chunk) { return (unsigned)(E / chunk + C); }
+
+// schur_point_kernel<kStage> over ceil(P/L) blocks of `threads` (a power of
+// two >= L*K) with L landmarks each; shared memory opted in above 48 KB.
+template <int kStage>
+cudaError_t launch_schur_point(const float* x, const float* W, const float* Vinv,
+                               const int* cam_idx, int C, int P, int K, int threads, int L,
+                               float* out, cudaStream_t s) {
+  const int nb = P > 0 ? (P + L - 1) / L : 0;
+  if (nb == 0) return cudaSuccess;
+  const size_t smem = ((size_t)threads * (kWStride + kYStride) + 3 * L) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        schur_point_kernel<kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  schur_point_kernel<kStage><<<nb, threads, smem, s>>>(x, W, Vinv, cam_idx, C, P, K, L, out);
+  return cudaSuccess;
+}
+
+// Camera sums of y3 [E,6] through the camera CSR (order [E], offsets [C+1],
+// chunks [C+1]): cam_reduce's chunk kernel into part [E/chunk + C, 6]
+// scratch, then one block per camera over its chunk sums into out [C,6].
+void launch_cam_sums(const float* y3, const int* order, const int* offsets, const int* chunks,
+                     int C, long long E, int chunk, float* part, float* out, cudaStream_t s) {
+  cam_reduce_kernel<<<chunk_grid(E, C, chunk), kThreads, 0, s>>>(y3, order, offsets, chunks, C,
+                                                                chunk, 6, part);
+  schur_off_combine_kernel<<<C, kThreads, 0, s>>>(part, chunks, out);
+}
 
 }  // namespace
 
@@ -772,47 +754,40 @@ int ccm_normal_blocks(const float* R, const float* t, const float* X,
   return (int)cudaGetLastError();
 }
 
-// out [C,6].  The point kernel runs ceil(P/L) blocks of `threads` (a power
-// of two >= L*K) and writes y3 [P*K,6] scratch; the camera side sums y3
-// through the camera CSR (order [E], offsets [C+1], chunks [C+1]) chunk by
-// chunk into part [P*K/chunk + C, 6] scratch, then per camera.
+// The Schur operators over W [P,K,6,3] (the point kernel: ceil(P/L) blocks
+// of `threads`, a power of two >= L*K, with L landmarks each).  off and rhs
+// write per-observation rows to y3 [P*K,6] scratch and sum them through
+// the camera CSR (order [E], offsets [C+1], chunks [C+1]) chunk by chunk
+// into part [P*K/chunk + C, 6] scratch, then per camera into out [C,6].
 int ccm_schur_off(const float* v, const float* W, const float* Vinv, const int* cam_idx,
                   const int* order, const int* offsets, const int* chunks, int C, int P, int K,
                   int threads, int L, int chunk, float* y3, float* part, float* out,
                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = P > 0 ? (P + L - 1) / L : 0;
-  if (nb > 0) {
-    const size_t smem = ((size_t)threads * (kWStride + kYStride) + 3 * L) * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          schur_off_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    schur_off_point_kernel<<<nb, threads, smem, s>>>(v, W, Vinv, cam_idx, C, P, K, L, y3);
-  }
-  cam_reduce_kernel<<<chunk_grid((long long)P * K, C, chunk), kThreads, 0, s>>>(
-      y3, order, offsets, chunks, C, chunk, 6, part);
-  schur_off_combine_kernel<<<C, kThreads, 0, s>>>(part, chunks, out);
+  const cudaError_t err =
+      launch_schur_point<kOff>(v, W, Vinv, cam_idx, C, P, K, threads, L, y3, s);
+  if (err != cudaSuccess) return (int)err;
+  launch_cam_sums(y3, order, offsets, chunks, C, (long long)P * K, chunk, part, out, s);
   return (int)cudaGetLastError();
 }
 
-// out [C,6]; rows [P*K,6] scratch.
-int ccm_schur_rhs(const float* q, const float* W, const int* pos, const int* offsets, int C,
-                  int P, int K, float* rows, float* out, void* stream) {
+int ccm_schur_rhs(const float* q, const float* W, const int* order, const int* offsets,
+                  const int* chunks, int C, int P, int K, int threads, int L, int chunk,
+                  float* y3, float* part, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = n_blocks(P);
-  if (nb > 0) schur_rhs_kernel<<<nb, kThreads, 0, s>>>(q, W, pos, P, K, rows);
-  launch_seg_sum(rows, offsets, C, 6, out, s);
+  const cudaError_t err =
+      launch_schur_point<kRhs>(q, W, nullptr, nullptr, C, P, K, threads, L, y3, s);
+  if (err != cudaSuccess) return (int)err;
+  launch_cam_sums(y3, order, offsets, chunks, C, (long long)P * K, chunk, part, out, s);
   return (int)cudaGetLastError();
 }
 
 // out [P,3].
 int ccm_schur_wtv(const float* v, const float* W, const int* cam_idx, int C, int P, int K,
-                  float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nb = n_blocks(P);
-  if (nb > 0) schur_wtv_kernel<<<nb, kThreads, 0, s>>>(v, W, cam_idx, C, P, K, out);
+                  int threads, int L, float* out, void* stream) {
+  const cudaError_t err = launch_schur_point<kWtv>(v, W, nullptr, cam_idx, C, P, K, threads, L,
+                                                   out, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -57,8 +57,8 @@ _SIGNATURES = {
     "ccm_reproj_cost": [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3,
     "ccm_normal_blocks": [_P] * 10 + [_I] * 6 + [_F] + [_P] * 11,
     "ccm_schur_off": [_P] * 7 + [_I] * 6 + [_P] * 4,
-    "ccm_schur_rhs": [_P] * 4 + [_I, _I, _I] + [_P] * 3,
-    "ccm_schur_wtv": [_P] * 3 + [_I, _I, _I] + [_P] * 2,
+    "ccm_schur_rhs": [_P] * 5 + [_I] * 6 + [_P] * 4,
+    "ccm_schur_wtv": [_P] * 3 + [_I] * 5 + [_P] * 2,
     "ccm_cam_broadcast": [_P] * 2 + [_I, _I, _I] + [_P] * 2,
     "ccm_cam_reduce": [_P] * 4 + [_I] * 4 + [_P] * 3,
 }
@@ -114,19 +114,16 @@ class CamCSR:
 
     cam_idx is constant across LM and CG iterations, so this is built once
     per solve.  Camera c owns sorted slots ``offsets[c]:offsets[c+1]``;
-    ``order[j]`` is the observation in slot j and ``pos`` its inverse.
-    ``schur_ops``' rhs writes each observation's row into its slot ``pos[e]``
-    for one segment kernel to sum in order; ``normal_blocks``' camera kernel
-    and ``schur_ops``' off read the observations of each camera through
-    ``order``, one block per chunk of ``CHUNK`` slots (camera c owns chunks
-    ``chunks[c]:chunks[c+1]``).
+    ``order[j]`` is the observation in slot j.  ``normal_blocks``' camera
+    kernel and ``schur_ops``' off and rhs read the observations of each
+    camera through ``order``, one block per chunk of ``CHUNK`` slots (camera
+    c owns chunks ``chunks[c]:chunks[c+1]``).
     """
 
     C: int
     ci: torch.Tensor       # [P,K] int32, cam_idx clipped to [0, C)
-    pos: torch.Tensor      # [P*K] int32
     offsets: torch.Tensor  # [C+1] int32
-    order: torch.Tensor    # [P*K] int32, the inverse of pos
+    order: torch.Tensor    # [P*K] int32
     chunks: torch.Tensor   # [C+1] int32
 
 
@@ -147,9 +144,7 @@ def _sorted_slots(key: torch.Tensor, C: int):
 def cam_csr(cam_idx: torch.Tensor, C: int) -> CamCSR:
     ci = cam_idx.clamp(0, C - 1).to(torch.int32).contiguous()
     order, offsets, chunks = _sorted_slots(ci.reshape(-1).long(), C)
-    pos = torch.empty_like(order)
-    pos[order.long()] = torch.arange(order.numel(), dtype=torch.int32, device=order.device)
-    return CamCSR(C=C, ci=ci, pos=pos, offsets=offsets, order=order, chunks=chunks)
+    return CamCSR(C=C, ci=ci, offsets=offsets, order=order, chunks=chunks)
 
 
 @dataclass(frozen=True)
@@ -177,7 +172,6 @@ def _check_csr(csr: CamCSR, C: int, P: int, K: int, device) -> None:
     if csr.C != C:
         raise ValueError(f"csr built for C={csr.C}, problem has C={C}")
     _check("csr.ci", csr.ci, torch.int32, (P, K), device)
-    _check("csr.pos", csr.pos, torch.int32, (P * K,), device)
     _check("csr.offsets", csr.offsets, torch.int32, (C + 1,), device)
     _check("csr.order", csr.order, torch.int32, (P * K,), device)
     _check("csr.chunks", csr.chunks, torch.int32, (C + 1,), device)
@@ -290,7 +284,7 @@ def _chunk_rows(E: int, C: int) -> int:
 
 def point_layout(K: int) -> tuple:
     """(threads, L) of the per-observation kernels (``normal_blocks``' point
-    kernel, ``reproj_cost``, ``schur_ops``' off): blocks of ``threads`` (256,
+    kernel, ``reproj_cost``, ``schur_ops``): blocks of ``threads`` (256,
     or the power of two at or above K) holding L = threads // K whole
     landmarks, one thread per observation slot."""
     if not 1 <= K <= 1024:
@@ -363,15 +357,21 @@ def _check_schur(W, Vinv, csr: CamCSR):
     return P, K, dev
 
 
-def _schur_off(W, Vinv, csr: CamCSR, counter: str):
-    """``off`` on the card: ccm_schur_off, counted under ``counter``.  Its
-    scratch (the per-observation rows y3 and the per-chunk sums) is
-    allocated once per operator: calls run in stream order."""
+def _cam_scratch(E: int, C: int, device):
+    """Scratch of the Schur kernels' camera side: per-observation rows y3
+    [E,6] and per-chunk sums.  An operator allocates it once; its calls run
+    in stream order, so off and rhs can share it."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(E, 6, **f32), torch.empty(_chunk_rows(E, C), 6, **f32)
+
+
+def _schur_off(W, Vinv, csr: CamCSR, counter: str, scratch):
+    """``off`` on the card: ccm_schur_off, counted under ``counter``, its
+    rows and chunk sums in ``scratch`` (``_cam_scratch``)."""
     P, K, dev = _check_schur(W, Vinv, csr)
     C = csr.C
     threads, L = point_layout(K)
-    y3 = torch.empty(P * K, 6, dtype=torch.float32, device=dev)
-    part = torch.empty(_chunk_rows(P * K, C), 6, dtype=torch.float32, device=dev)
+    y3, part = scratch
 
     def off(v):
         _check("v", v, torch.float32, (C, 6), dev)
@@ -392,27 +392,31 @@ def schur_ops(W, Vinv, csr: CamCSR):
       rhs(q [P,3]) -> [C,6]  camera sums of W_e q_p
       wtv(v [C,6]) -> [P,3]  landmark sums of W_e^T v[ci_e]
 
-    with ci = csr.ci (cam_idx clipped to [0, C))."""
+    with ci = csr.ci (cam_idx clipped to [0, C)).  On the card all three
+    run one thread per observation (``point_layout``); off and rhs sum
+    their per-observation rows per camera through ``csr.order``."""
     P, K, dev = _check_schur(W, Vinv, csr)
     C = csr.C
     if not _on_card(dev):
         return schur_ops_plain(W, Vinv, csr.ci, C)
-    f32 = dict(dtype=torch.float32, device=dev)
-    off = _schur_off(W, Vinv, csr, "schur_off")
+    threads, L = point_layout(K)
+    scratch = _cam_scratch(P * K, C, dev)
+    y3, part = scratch
+    off = _schur_off(W, Vinv, csr, "schur_off", scratch)
 
     def rhs(q):
         _check("q", q, torch.float32, (P, 3), dev)
-        rows = torch.empty(P * K, 6, **f32)
-        out = torch.empty(C, 6, **f32)
-        _launch("ccm_schur_rhs", dev, _ptr(q), _ptr(W), _ptr(csr.pos), _ptr(csr.offsets),
-                C, P, K, _ptr(rows), _ptr(out))
+        out = torch.empty(C, 6, dtype=torch.float32, device=dev)
+        _launch("ccm_schur_rhs", dev, _ptr(q), _ptr(W), _ptr(csr.order), _ptr(csr.offsets),
+                _ptr(csr.chunks), C, P, K, threads, L, CHUNK, _ptr(y3), _ptr(part), _ptr(out))
         LAUNCHES["schur_rhs"] += 1
         return out
 
     def wtv(v):
         _check("v", v, torch.float32, (C, 6), dev)
-        out = torch.empty(P, 3, **f32)
-        _launch("ccm_schur_wtv", dev, _ptr(v), _ptr(W), _ptr(csr.ci), C, P, K, _ptr(out))
+        out = torch.empty(P, 3, dtype=torch.float32, device=dev)
+        _launch("ccm_schur_wtv", dev, _ptr(v), _ptr(W), _ptr(csr.ci), C, P, K, threads, L,
+                _ptr(out))
         LAUNCHES["schur_wtv"] += 1
         return out
 
@@ -481,4 +485,4 @@ def make_schur_matvec(W, Vinv, cam_idx, C: int):
     _check_schur(W, Vinv, csr)
     if not _on_card(W.device):
         return schur_matvec_plain(W, Vinv, csr.ci, C)
-    return _schur_off(W, Vinv, csr, "schur_matvec")
+    return _schur_off(W, Vinv, csr, "schur_matvec", _cam_scratch(csr.ci.numel(), C, W.device))

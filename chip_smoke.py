@@ -20,8 +20,9 @@ that path's own expected counts after it:
      ``normal_blocks``, ``cam_reduce`` and ``reproj_cost`` at the client's
      local-BA shape (C=40, P=4096, K=16), ``reproj_cost``, the Schur
      operators and ``normal_blocks`` at its initialization BA's,
-     ``normal_blocks``, ``cam_reduce``, ``reproj_cost`` and
-     ``make_schur_matvec`` at the stress shape (C=1024, P=131,072, K=8),
+     ``normal_blocks``, ``cam_reduce``, ``reproj_cost``,
+     ``make_schur_matvec``, ``schur_ops``' rhs and wtv and ``cam_broadcast``
+     (F=6 and F=12) at the stress shape (C=1024, P=131,072, K=8),
      ``hamming_top2`` at 1024 x 16384; then the solve's wall and device
      time;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
@@ -39,8 +40,9 @@ that path's own expected counts after it:
   8. front-end step times (medians of 5 runs with their spread);
   9. ``cam_reduce`` (F=6 and 42 at the server-GBA and stress shapes, and a
      ragged case whose ids -1 and >= C must be dropped),
-     ``make_schur_matvec`` (server-GBA and stress shapes) and ``reproj_cost``
-     (stress shape) against their plain versions, bit-identical on a rerun;
+     ``make_schur_matvec`` with ``schur_ops``' rhs and wtv (server-GBA and
+     stress shapes) and ``reproj_cost`` (stress shape) against their plain
+     versions, bit-identical on a rerun;
  10. the GBA profiling path: ``profile_gba`` at the stress shape (C=1024,
      P=131,072, K=8), every component's device time;
  11. the single-agent client loop at full width: ``Tracker.process_image``
@@ -86,30 +88,31 @@ from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
-from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, cost_entry,
-                                 device_events, device_ms, kernel_ms, log, nbytes, off_entry,
-                                 problem_args, reduce_entry, schur_inputs, time_table)
+from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, broadcast_entry,
+                                 cost_entry, device_events, device_ms, kernel_ms, log, nbytes,
+                                 off_entry, problem_args, reduce_entry, rhs_wtv_entry,
+                                 schur_inputs, time_table)
 
 POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
 SOURCE = "ccm_slam_tpu_torch/csrc/ba_kernels.cu"
 HAMMING_SOURCE = "ccm_slam_tpu_torch/csrc/hamming_kernels.cu"
 PALLAS = "ccm_slam_tpu/ops/pallas_kernels.py"
-# (name, the TPU kernel's pallas_call it replaces, flops per observation)
+# (name, the TPU kernel's pallas_call it replaces)
 KERNELS = [
-    ("reproj_cost", f"{PALLAS}:1097", 40),
-    ("normal_blocks", f"{PALLAS}:967", 400),
-    ("schur_off", f"{PALLAS}:634", 80),
-    ("schur_rhs", f"{PALLAS}:648", 36),
-    ("schur_wtv", f"{PALLAS}:660", 36),
-    ("cam_broadcast", f"{PALLAS}:324", 0),
+    ("reproj_cost", f"{PALLAS}:1097"),
+    ("normal_blocks", f"{PALLAS}:967"),
+    ("schur_off", f"{PALLAS}:634"),
+    ("schur_rhs", f"{PALLAS}:648"),
+    ("schur_wtv", f"{PALLAS}:660"),
+    ("cam_broadcast", f"{PALLAS}:324"),
 ]
 
-# the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix)
+# the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix;
+# schur_point is one template for off, rhs and wtv)
 CUDA_KERNELS = ("reproj_cost", "normal_blocks_point", "normal_blocks_camera",
-                "normal_blocks_finish", "seg_sum", "sum_partials", "schur_off_point",
-                "schur_off_combine", "schur_rhs", "schur_wtv", "cam_broadcast", "cam_reduce",
-                "cam_reduce_combine")
+                "normal_blocks_finish", "sum_partials", "schur_point", "schur_off_combine",
+                "cam_broadcast", "cam_reduce", "cam_reduce_combine")
 # the bootstrap pair and the relocalization frame of
 # RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
 # JAX package's own errors on that pair against ground truth (rotation,
@@ -260,46 +263,30 @@ def check_kernels(prob, rng, label):
     rerun("cam_broadcast", lambda: bk.cam_broadcast(Rt, ci), out)
     torch.cuda.synchronize()
     log("  every kernel above: bit-identical on a rerun  ok")
-    inputs = dict(prob=prob, intr=intr, csr=csr, W=W, Vinv=Vinv, v=v, q=q, Rt=Rt, ci=ci)
+    inputs = dict(prob=prob, intr=intr, csr=csr, W=W, Vinv=Vinv, v=v, q=q)
     return errs, inputs
 
 
-def rhs_wtv_entries(inp):
-    """``time_table`` entries of ``schur_ops``' rhs and wtv on a problem's
-    ``check_kernels`` inputs."""
-    prob, csr, W, Vinv, v, q = (inp[k] for k in ("prob", "csr", "W", "Vinv", "v", "q"))
-    C, (P, _) = prob.R.shape[0], prob.cam_idx.shape
-    _, rhs_k, wtv_k = bk.schur_ops(W, Vinv, csr)
-    _, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
-    flops = dict((name, f) for name, _, f in KERNELS)
-    return {
-        "schur_rhs": (lambda: rhs_k(q), lambda: rhs_p(q),
-                      nbytes(q, W, prob.cam_idx, torch.empty(C, 6)), flops["schur_rhs"], None,
-                      DEVICE_KERNELS["schur_rhs"]),
-        "schur_wtv": (lambda: wtv_k(v), lambda: wtv_p(v),
-                      nbytes(v, W, prob.cam_idx, torch.empty(P, 3)), flops["schur_wtv"], None,
-                      DEVICE_KERNELS["schur_wtv"]),
-    }
+def schur_entries(prob, W, Vinv, v, q):
+    """``time_table`` entries of ``schur_ops``' off, rhs and wtv on W, Vinv,
+    v [C,6] and q [P,3]."""
+    return {"schur_off": off_entry(bk, prob, W, Vinv, v),
+            "schur_rhs": rhs_wtv_entry(bk, prob, W, Vinv, q, "schur_rhs"),
+            "schur_wtv": rhs_wtv_entry(bk, prob, W, Vinv, v, "schur_wtv")}
 
 
 def kernel_timings(inp):
     """``time_table``'s result for every kernel at the bench shapes,
     cam_reduce included."""
-    prob, csr, W, Vinv, v, Rt, ci = (inp[k] for k in ("prob", "csr", "W", "Vinv", "v", "Rt",
-                                                      "ci"))
-    E = prob.cam_idx.numel()
+    prob, csr, W, Vinv, v, q = (inp[k] for k in ("prob", "csr", "W", "Vinv", "v", "q"))
     table = {
         "reproj_cost": cost_entry(bk, prob),
         "normal_blocks": blocks_entry(bk, prob, csr),
-        "schur_off": off_entry(bk, prob, W, Vinv, v),
-        **rhs_wtv_entries(inp),
-        "cam_broadcast": (
-            lambda: bk.cam_broadcast(Rt, ci), lambda: bk.cam_broadcast_plain(Rt, ci),
-            nbytes(Rt, ci, torch.empty(E, Rt.shape[1])), 0,
-            lambda: torch.index_select(Rt, 0, ci), DEVICE_KERNELS["cam_broadcast"]),
+        **schur_entries(prob, W, Vinv, v, q),
+        "cam_broadcast": broadcast_entry(bk, prob, 12),
         "cam_reduce": reduce_entry(bk, prob),
     }
-    return time_table(table, E, "bench")
+    return time_table(table, prob.cam_idx.numel(), "bench")
 
 
 def centres(R, t):
@@ -770,34 +757,47 @@ def check_cam_reduce(dev):
 
 
 def check_schur_matvec(probs, rng):
-    """make_schur_matvec against schur_matvec_plain on each problem, bit-
-    identical on a rerun; returns the max abs error."""
+    """make_schur_matvec, and schur_ops' rhs and wtv, against their plain
+    versions on each problem, bit-identical on a rerun; returns
+    make_schur_matvec's max abs error."""
     err = 0.0
     for label, prob in probs.items():
-        C = prob.R.shape[0]
+        C, (P, _) = prob.R.shape[0], prob.cam_idx.shape
         W, Vinv = schur_inputs(bk, ba, prob)
         v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=W.device)
-        off = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)
-        out, again = off(v), off(v)
-        err = max(err, compare(f"make_schur_matvec {label}", out,
-                               bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v),
-                               TOL_SCHUR, 1e-4))
-        if not torch.equal(out, again):
-            raise AssertionError(f"make_schur_matvec {label}: rerun not bit-identical")
+        q = torch.as_tensor(rng.standard_normal((P, 3)).astype(np.float32), device=W.device)
+        _, rhs_k, wtv_k = bk.schur_ops(W, Vinv, bk.cam_csr(prob.cam_idx, C))
+        _, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)
+        off_k = bk.make_schur_matvec(W, Vinv, prob.cam_idx, C)
+        off_p = bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)
+        for name, fk, fp, x in (("make_schur_matvec", off_k, off_p, v),
+                                ("schur_rhs", rhs_k, rhs_p, q), ("schur_wtv", wtv_k, wtv_p, v)):
+            out, again = fk(x), fk(x)
+            e = compare(f"{name} {label}", out, fp(x), TOL_SCHUR, 1e-4)
+            if name == "make_schur_matvec":
+                err = max(err, e)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} {label}: rerun not bit-identical")
     return err
 
 
 def stress_timings(stress, rng):
-    """``time_table``'s result for normal_blocks, cam_reduce, reproj_cost and
-    make_schur_matvec at the stress shape, the profiling path's inputs."""
+    """``time_table``'s result for normal_blocks, cam_reduce, reproj_cost,
+    make_schur_matvec, schur_ops' rhs and wtv and cam_broadcast (F=6 and
+    F=12) at the stress shape, the profiling path's inputs."""
     C, (P, K) = stress.R.shape[0], stress.cam_idx.shape
     W, Vinv = schur_inputs(bk, ba, stress)
     v = torch.as_tensor(rng.standard_normal((C, 6)).astype(np.float32), device=W.device)
+    q = torch.as_tensor(rng.standard_normal((P, 3)).astype(np.float32), device=W.device)
     table = {
         "normal_blocks": blocks_entry(bk, stress, bk.cam_csr(stress.cam_idx, C)),
         "cam_reduce": reduce_entry(bk, stress),
         "reproj_cost": cost_entry(bk, stress),
         "schur_matvec": off_entry(bk, stress, W, Vinv, v, "schur_matvec"),
+        "schur_rhs": rhs_wtv_entry(bk, stress, W, Vinv, q, "schur_rhs"),
+        "schur_wtv": rhs_wtv_entry(bk, stress, W, Vinv, v, "schur_wtv"),
+        "cam_broadcast F=6": broadcast_entry(bk, stress, 6),
+        "cam_broadcast F=12": broadcast_entry(bk, stress, 12),
     }
     return time_table(table, P * K, "stress")
 
@@ -1087,16 +1087,15 @@ def main() -> int:
         f"BA's shape; {smi}")
     init = init_inputs["prob"]
     time_table({"reproj_cost": cost_entry(bk, init),
-                "schur_off": off_entry(bk, init, *(init_inputs[k] for k in ("W", "Vinv", "v"))),
-                **rhs_wtv_entries(init_inputs),
+                **schur_entries(init, *(init_inputs[k] for k in ("W", "Vinv", "v", "q"))),
                 "normal_blocks": blocks_entry(bk, init, init_inputs["csr"])},
                init.cam_idx.numel(), "init BA")
     del init, init_inputs
     # every kernel is timed before the first long profiler window (the solve
     # below): windows after one have lost a few device events
     stress = convert.ba_problem_from_numpy(problems.stress_problem_arrays(), dev)
-    log(f"[times] normal_blocks, cam_reduce, reproj_cost and make_schur_matvec at the stress "
-        f"shape; {smi}")
+    log(f"[times] normal_blocks, cam_reduce, reproj_cost, make_schur_matvec, rhs, wtv and "
+        f"cam_broadcast at the stress shape; {smi}")
     new_times = stress_timings(stress, rng)
     log(f"[times] hamming_top2; {smi}")
     top2_times = hamming_timing(dev)
@@ -1142,7 +1141,8 @@ def main() -> int:
     phase_done(8)
 
     # -- phase 9: cam_reduce, make_schur_matvec and reproj_cost against plain --
-    log("[kernels] cam_reduce, make_schur_matvec and reproj_cost against their plain versions")
+    log("[kernels] cam_reduce, make_schur_matvec, rhs, wtv and reproj_cost against their plain "
+        "versions")
     reduce_err = check_cam_reduce(dev)
     matvec_err = check_schur_matvec({"server GBA C=128 P=32768 K=8": bench,
                                      "stress C=1024 P=131072 K=8": stress}, rng)
@@ -1171,7 +1171,7 @@ def main() -> int:
     # its windows miscounted, the CUDA-event time
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=gba[name], max_abs_err=errs[name], **times[name])
-               for name, replaces, _ in KERNELS]
+               for name, replaces in KERNELS]
     kernels.append(dict(name="hamming_top2", route="cuda", source=HAMMING_SOURCE,
                         replaces=f"{PALLAS}:121", launches=reloc["hamming_top2"],
                         max_abs_err=hamming_err, **top2_times))

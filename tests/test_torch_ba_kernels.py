@@ -227,13 +227,12 @@ def test_cam_csr_groups_observations_by_camera():
     csr = bk.cam_csr(torch.as_tensor(cam_idx), 10)
     ci = np.clip(cam_idx, 0, 9).reshape(-1)
     np.testing.assert_array_equal(csr.ci.numpy().reshape(-1), ci)
-    pos, offsets = csr.pos.numpy(), csr.offsets.numpy()
-    assert sorted(pos.tolist()) == list(range(ci.size))
+    order, offsets = csr.order.numpy(), csr.offsets.numpy()
+    assert sorted(order.tolist()) == list(range(ci.size))
     for c in range(10):
         owned = np.sort(np.nonzero(ci == c)[0])
-        slots = pos[owned]
-        # camera c owns a contiguous run, in observation order (stable)
-        np.testing.assert_array_equal(slots, np.arange(offsets[c], offsets[c + 1]))
+        # camera c owns a contiguous run of slots, in observation order (stable)
+        np.testing.assert_array_equal(order[offsets[c]:offsets[c + 1]], owned)
 
 
 def test_wrappers_leave_launch_counts_at_zero_on_cpu():

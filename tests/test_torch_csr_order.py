@@ -60,17 +60,13 @@ def ids_with_drops(rng, E, C):
 @pytest.mark.parametrize("E,C", [(600, 9), (4096, 40), (1001, 1), (9000, 3)])
 def test_order_sorts_slots_stably(build, E, C):
     """``order`` is a permutation that sorts the ids stably (each camera's
-    slots hold its observations in ascending order); in ``cam_csr`` the
-    Schur kernels' ``pos`` is its inverse."""
+    slots hold its observations in ascending order)."""
     ci = torch.as_tensor(ids_with_drops(np.random.RandomState(E + C), E, C))
     csr = bk.cam_csr(ci.reshape(-1, 1), C) if build == "cam_csr" else bk.reduce_csr(ci, C)
     order = csr.order.long()
     assert csr.order.dtype == torch.int32 and csr.order.shape == (E,)
     assert torch.equal(torch.sort(order).values, torch.arange(E))
     if build == "cam_csr":
-        pos = csr.pos.long()
-        assert torch.equal(pos[order], torch.arange(E))
-        assert torch.equal(order[pos], torch.arange(E))
         key = csr.ci.reshape(-1).long()
     else:
         key = torch.where((ci >= 0) & (ci < C), ci, C).long()

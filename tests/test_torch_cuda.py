@@ -224,6 +224,28 @@ def test_schur_off_kernel_skewed_and_stress(name):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[3])
 
 
+@pytest.mark.parametrize("name", ["init_ba_k16", "init_ba_k32", "stress"])
+def test_schur_rhs_wtv_kernels_skewed_and_stress(name):
+    """rhs and wtv through schur_ops: one launch each per call, equal to the
+    plain versions, bit-identical reruns; camera 0 owns nearly all slots at
+    the initialization BA's layout.  rhs shares off's scratch: off between
+    two rhs calls (and rhs between two off calls) changes nothing."""
+    dev = card()
+    W, Vinv, ci, C = skewed_schur_case(name, dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    v = torch.randn(C, 6, generator=g).to(dev)
+    q = torch.randn(W.shape[0], 3, generator=g).to(dev)
+    _, rhs_p, wtv_p = bk.schur_ops_plain(W, Vinv, ci, C)
+    bk.reset_launch_counts()
+    off, rhs, wtv = bk.schur_ops(W, Vinv, bk.cam_csr(ci, C))
+    r1, o1, r2, o2, w1, w2 = rhs(q), off(v), rhs(q), off(v), wtv(v), wtv(v)
+    counts = bk.launch_counts()
+    assert counts["schur_rhs"] == 2 and counts["schur_wtv"] == 2 and counts["schur_off"] == 2
+    close(r1, rhs_p(q), 1e-4, 1e-4)
+    close(w1, wtv_p(v), 1e-4, 1e-4)
+    assert torch.equal(r1, r2) and torch.equal(o1, o2) and torch.equal(w1, w2)
+
+
 @pytest.mark.parametrize("name", ["local_ba_k16", "ragged_k12", "nan_landmark"])
 def test_reproj_cost_kernel_client_shapes(name):
     """One thread per observation: equal to the plain version, bit-identical
@@ -254,8 +276,9 @@ def test_reproj_cost_equals_normal_blocks_cost():
 
 
 def test_off_and_cost_kernels_wide_landmarks():
-    """K=300 slots: 512-thread blocks of one landmark; schur_off's point
-    kernel then needs more than 48 KB of shared memory (its opt-in path)."""
+    """K=300 slots: 512-thread blocks of one landmark; the Schur point
+    kernel (off, rhs, wtv) then needs more than 48 KB of shared memory (its
+    opt-in path)."""
     dev = card()
     prob = convert.ba_problem_from_numpy(
         problems.small_ba_problem_arrays(P=64, K=300, C=37, seed=301, fixed=3), dev)
@@ -267,9 +290,12 @@ def test_off_and_cost_kernels_wide_landmarks():
     ref = bk.reproj_cost_plain(*args(prob), prob.intr, DELTA)
     assert abs(float(ours) - float(ref)) < 1e-4 * abs(float(ref)) + 1e-2
     Vinv = ba.inv3x3(ba._damp(V, torch.tensor(1e-4, device=dev))).contiguous()
-    v = torch.randn(C, 6, generator=torch.Generator(device="cpu").manual_seed(4)).to(dev)
-    close(bk.schur_ops(W, Vinv, csr)[0](v), bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)(v),
-          1e-4, 1e-4)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    v = torch.randn(C, 6, generator=g).to(dev)
+    q = torch.randn(W.shape[0], 3, generator=g).to(dev)
+    for fk, fp, x in zip(bk.schur_ops(W, Vinv, csr),
+                         bk.schur_ops_plain(W, Vinv, prob.cam_idx, C), (v, q, v)):
+        close(fk(x), fp(x), 1e-4, 1e-4)
 
 
 def test_tracker_step_on_card_matches_cpu():

@@ -1,5 +1,5 @@
-"""The fixed summation orders of the card's ``schur_ops`` off (and
-``make_schur_matvec``, the same kernels) and ``reproj_cost``.
+"""The fixed summation orders of the card's ``schur_ops`` (off, rhs, wtv;
+``make_schur_matvec`` runs off's kernels) and ``reproj_cost``.
 
 On the card, off runs one thread per observation in blocks of whole
 landmarks: y1_e = W_e^T v[ci_e], y1_p summed over the landmark's K slots in
@@ -7,7 +7,8 @@ slot order, y2_p = Vinv_p y1_p, y3_e = W_e y2_p written in observation order;
 then each camera's CSR slots (``CamCSR.order``) are summed chunk by chunk
 (``cam_reduce``'s chunk kernel: 42 row strides, then a fixed tree) and the
 chunk sums per camera by one block (256 thread strides, a shuffle tree per
-warp, the warps in order).
+warp, the warps in order).  rhs writes y3_e = W_e q_p and sums it per
+camera as off does; wtv returns off's y1_p.
 ``reproj_cost`` takes one Huber term per observation in the same blocks,
 tree-sums each block and sums the block partials in one fixed pass.  Here a
 numpy float32 sum in exactly those orders, on the same inputs, is held
@@ -83,8 +84,9 @@ def camera_sums(y3, csr, C):
     return out
 
 
-def off_in_kernel_order(W, Vinv, ci, v, C):
-    """off(v) summed as the card sums it; ci [P,K] already clipped."""
+def y1_in_kernel_order(W, ci, v):
+    """y1_p = sum_k W_pk^T v[ci_pk] as the point kernel sums it (off's y1_p,
+    wtv's result); ci [P,K] already clipped."""
     P, K = ci.shape
     y1_e = np.zeros((P, K, 3), F32)
     for i in range(6):  # y1_e[j] = sum_i W[i][j] v[ci][i], i in order
@@ -92,11 +94,22 @@ def off_in_kernel_order(W, Vinv, ci, v, C):
     y1 = np.zeros((P, 3), F32)
     for k in range(K):  # the landmark's slots in order
         y1 = y1 + y1_e[:, k]
+    return y1
+
+
+def rows_in_kernel_order(W, y):
+    """y3_e = W_e y_p(e) [P*K,6] per observation, as the point kernel forms it."""
+    y3 = (W[:, :, :, 0] * y[:, None, None, 0] + W[:, :, :, 1] * y[:, None, None, 1]
+          + W[:, :, :, 2] * y[:, None, None, 2])
+    return y3.reshape(-1, 6).astype(F32)
+
+
+def off_in_kernel_order(W, Vinv, ci, v, C):
+    """off(v) summed as the card sums it; ci [P,K] already clipped."""
+    y1 = y1_in_kernel_order(W, ci, v)
     y2 = Vinv[:, :, 0] * y1[:, :1] + Vinv[:, :, 1] * y1[:, 1:2] + Vinv[:, :, 2] * y1[:, 2:]
-    y3 = (W[:, :, :, 0] * y2[:, None, None, 0] + W[:, :, :, 1] * y2[:, None, None, 1]
-          + W[:, :, :, 2] * y2[:, None, None, 2])
     csr = bk.cam_csr(torch.as_tensor(ci), C)
-    return camera_sums(y3.reshape(P * K, 6).astype(F32), csr, C)
+    return camera_sums(rows_in_kernel_order(W, y2), csr, C)
 
 
 def skewed_schur_inputs(P, K, C, seed):
@@ -137,6 +150,31 @@ def test_schur_off_in_kernel_order_matches_references(P, K, C):
     WT = jnp.asarray(np.pad(W.reshape(P * K, 18).T, ((0, 6), (0, 0))))
     off_k = pk.make_schur_ops(Vj, cj, C, WT=WT, exact=True, interpret=True)[0]
     np.testing.assert_allclose(ours, np.asarray(off_k(jnp.asarray(v))), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("P,K,C", [(300, 4, 33), (300, 12, 9), (1400, 16, 20)])
+def test_schur_rhs_and_wtv_in_kernel_order_match_references(P, K, C):
+    """rhs: W_e q_p per observation, summed per camera through the CSR
+    chunks as off's y3; wtv: off's y1_p.  Camera 0 owns ~80% of the slots,
+    whose W rows are zero; two ids out of range (clipped)."""
+    W, Vinv, ci, v = skewed_schur_inputs(P, K, C, seed=P + K + 1)
+    q = np.random.RandomState(P + K + 2).randn(P, 3).astype(F32)
+    csr = bk.cam_csr(torch.as_tensor(ci), C)
+    rhs = camera_sums(rows_in_kernel_order(W, q), csr, C)
+    wtv = y1_in_kernel_order(W, np.clip(ci, 0, C - 1), v)
+    Wt, Vt, qt, vt = (torch.as_tensor(a) for a in (W, Vinv, q, v))
+    for ops in (bk.schur_ops_plain(Wt, Vt, torch.as_tensor(ci), C), bk.schur_ops(Wt, Vt, csr)):
+        close(rhs, ops[1](qt), 1e-4, 1e-5)
+        close(wtv, ops[2](vt), 1e-4, 1e-5)
+    Wj, Vj, cj = jnp.asarray(W), jnp.asarray(Vinv), jnp.asarray(ci)
+    close(rhs, jax.jit(lambda x: pk.schur_rhs_reference(Wj, cj, C)(x))(jnp.asarray(q)), 1e-4,
+          1e-5)
+    close(wtv, jax.jit(lambda x: pk.schur_wtv_reference(Wj, cj, C)(x))(jnp.asarray(v)), 1e-4,
+          1e-5)
+    WT = jnp.asarray(np.pad(W.reshape(P * K, 18).T, ((0, 6), (0, 0))))
+    _, rhs_k, wtv_k = pk.make_schur_ops(Vj, cj, C, WT=WT, exact=True, interpret=True)
+    np.testing.assert_allclose(rhs, np.asarray(rhs_k(jnp.asarray(q))), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(wtv, np.asarray(wtv_k(jnp.asarray(v))), rtol=1e-4, atol=1e-3)
 
 
 def cost_in_kernel_order(prob):

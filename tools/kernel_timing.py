@@ -21,7 +21,7 @@ HUBER = 2.447651936
 REPS = 100                 # wrapper calls per timing window
 
 # device kernels one wrapper call launches
-DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=3, schur_rhs=2, schur_wtv=1,
+DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=3, schur_rhs=3, schur_wtv=1,
                       cam_broadcast=1, cam_reduce=2, schur_matvec=3, hamming_top2=2)
 LIBRARY = dict(cam_broadcast="index_select",
                cam_reduce="index_add_, float atomics: not deterministic")
@@ -123,7 +123,8 @@ def time_table(table, E, label):
     """Time every entry of ``table`` {name: (kernel fn, plain fn, bytes,
     flops per observation, library fn or None, device kernels per call)} on
     a problem of E observations; returns {name: dict(ms, ms_by, plain_ms,
-    bound_ms, bound_by, library_ms)}, the keys of a kernel's result line."""
+    bound_ms, bound_by, library_ms)}, the keys of a kernel's result line.
+    A name may carry a case after a space ("cam_broadcast F=6")."""
     out = {}
     for name, (fk, fp, n_bytes, flops_per_obs, flib, want) in table.items():
         ms, ms_by, n_k, ev, split = kernel_ms(fk, REPS, want)
@@ -132,7 +133,7 @@ def time_table(table, E, label):
         bound_ms, bound_by = bound(n_bytes, flops_per_obs * E)
         out[name] = dict(ms=ms, ms_by=ms_by, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
-        lib_s = f"{lib_ms:.4f} ({LIBRARY[name]})" if lib_ms is not None else "none"
+        lib_s = f"{lib_ms:.4f} ({LIBRARY[name.split()[0]]})" if lib_ms is not None else "none"
         log(f"  {name:<14} {label}: kernel {ms:.4f} ms by {ms_by}, {n_k:g} device "
             f"kernels/call ({ev:.4f} ms/call by events)  plain {plain_ms:.4f} ms, {n_p:g} "
             f"kernels/call  bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)  "
@@ -208,3 +209,30 @@ def off_entry(bk, prob, W, Vinv, v, name="schur_off"):
     off_p = bk.schur_matvec_plain(W, Vinv, prob.cam_idx, C)
     return (lambda: off_k(v), lambda: off_p(v),
             nbytes(v, W, Vinv, prob.cam_idx, torch.empty(C, 6)), 80, None, DEVICE_KERNELS[name])
+
+
+def rhs_wtv_entry(bk, prob, W, Vinv, x, name):
+    """The ``time_table`` entry of ``schur_ops``' rhs (name "schur_rhs", x =
+    q [P,3]) or wtv ("schur_wtv", x = v [C,6]) over W and Vinv, the CSR
+    built once per solve."""
+    C, (P, _) = prob.R.shape[0], prob.cam_idx.shape
+    i = ("schur_rhs", "schur_wtv").index(name) + 1
+    fk = bk.schur_ops(W, Vinv, bk.cam_csr(prob.cam_idx, C))[i]
+    fp = bk.schur_ops_plain(W, Vinv, prob.cam_idx, C)[i]
+    out = torch.empty(C, 6) if name == "schur_rhs" else torch.empty(P, 3)
+    return (lambda: fk(x), lambda: fp(x), nbytes(x, W, prob.cam_idx, out), 36, None,
+            DEVICE_KERNELS[name])
+
+
+def broadcast_entry(bk, prob, F):
+    """The ``time_table`` entry of ``bk.cam_broadcast`` of a random [C,F]
+    table to a problem's observations by the clipped camera ids (F=12: the
+    poses of the final statistics; F=6: a CG vector); ``index_select`` as
+    the library call."""
+    C = prob.R.shape[0]
+    E = prob.cam_idx.numel()
+    ci = prob.cam_idx.reshape(-1).clamp(0, C - 1).contiguous()
+    v = torch.randn(C, F, generator=torch.Generator(device="cpu").manual_seed(F)).to(ci.device)
+    return (lambda: bk.cam_broadcast(v, ci), lambda: bk.cam_broadcast_plain(v, ci),
+            nbytes(v, ci, torch.empty(E, F)), 0, lambda: torch.index_select(v, 0, ci),
+            DEVICE_KERNELS["cam_broadcast"])

@@ -21,22 +21,26 @@ Shapes and what runs there on the main path:
   bench     C=128,  P=32,768,  K=8   server GBA (every kernel)
   init BA   C=160,  P=24,576,  K=16  the client's initialization BA, its
                                      empty slots on camera 0 (``schur_off``,
+                                     ``schur_rhs``, ``schur_wtv``,
                                      ``reproj_cost``, ``normal_blocks``)
   local BA  C=40,   P=4,096,   K=16  the client's local BA, dense branch
                                      (``reproj_cost``, ``normal_blocks``)
   stress    C=1024, P=131,072, K=8   ``profile_gba`` (``make_schur_matvec``,
+                                     ``schur_rhs``, ``schur_wtv``,
+                                     ``cam_broadcast`` at F=6 and F=12,
                                      ``reproj_cost``, ``normal_blocks``,
                                      ``cam_reduce``)
 ``cam_reduce`` (F=6, the clipped ids) is timed at every shape as well.
 Last, after every kernel window (the profiler has lost events in windows
 that follow a long one), one 20-iteration ``ba_solve`` at the bench and
 init-BA shapes (both on the PCG branch) under the profiler: its device time
-(all device kernels, the port's and PyTorch's) beside its wall time.
+(all device kernels, the port's and PyTorch's) and its CG steps beside its
+wall time.
 
 Prints one JSON line per (kernel, shape): ``kernel_timing.time_table``'s
 result (device ms per call, how it was measured, the plain version's ms,
-the bound, ``index_add_``'s ms for ``cam_reduce``) with the card's name and
-power limit.
+the bound, ``index_add_``'s ms for ``cam_reduce`` and ``index_select``'s for
+``cam_broadcast``) with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,12 +58,14 @@ import kernel_timing as kt
 
 HERE = Path(__file__).resolve().parents[1]
 # shape -> kernels timed there
+SCHUR = ("schur_off", "schur_rhs", "schur_wtv")
 KERNELS = {
-    "bench C=128 P=32768 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", "schur_off"),
-    "init BA C=160 P=24576 K=16": ("normal_blocks", "cam_reduce", "reproj_cost", "schur_off"),
+    "bench C=128 P=32768 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR),
+    "init BA C=160 P=24576 K=16": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR),
     "local BA C=40 P=4096 K=16": ("normal_blocks", "cam_reduce", "reproj_cost"),
-    "stress C=1024 P=131072 K=8": ("normal_blocks", "cam_reduce", "reproj_cost",
-                                   "schur_matvec"),
+    "stress C=1024 P=131072 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", "schur_matvec",
+                                   "schur_rhs", "schur_wtv", "cam_broadcast F=6",
+                                   "cam_broadcast F=12"),
 }
 
 
@@ -110,15 +116,20 @@ def main() -> int:
     for shape, names in KERNELS.items():
         prob = convert.ba_problem_from_numpy(arrays[shape], dev)
         C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
-        entries = dict(normal_blocks=lambda: kt.blocks_entry(bk, prob, bk.cam_csr(prob.cam_idx, C)),
-                       cam_reduce=lambda: kt.reduce_entry(bk, prob),
-                       reproj_cost=lambda: kt.cost_entry(bk, prob))
-        if "schur_off" in names or "schur_matvec" in names:
+        entries = {"normal_blocks": lambda: kt.blocks_entry(bk, prob, bk.cam_csr(prob.cam_idx, C)),
+                   "cam_reduce": lambda: kt.reduce_entry(bk, prob),
+                   "reproj_cost": lambda: kt.cost_entry(bk, prob),
+                   "cam_broadcast F=6": lambda: kt.broadcast_entry(bk, prob, 6),
+                   "cam_broadcast F=12": lambda: kt.broadcast_entry(bk, prob, 12)}
+        if "schur_rhs" in names:
             W, Vinv = kt.schur_inputs(bk, ba, prob)
-            v = torch.as_tensor(np.random.default_rng(C).standard_normal((C, 6)),
-                                dtype=torch.float32, device=dev)
+            rng = np.random.default_rng(C)
+            v = torch.as_tensor(rng.standard_normal((C, 6)), dtype=torch.float32, device=dev)
+            q = torch.as_tensor(rng.standard_normal((P, 3)), dtype=torch.float32, device=dev)
             for name in ("schur_off", "schur_matvec"):
                 entries[name] = lambda name=name: kt.off_entry(bk, prob, W, Vinv, v, name)
+            for name, x in (("schur_rhs", q), ("schur_wtv", v)):
+                entries[name] = lambda name=name, x=x: kt.rhs_wtv_entry(bk, prob, W, Vinv, x, name)
         table = {name: entries[name]() for name in names}
         for name, res in kt.time_table(table, P * K, f"{a.label} {shape}").items():
             print(json.dumps(dict(code=a.label, kernel=name, shape=shape, card=smi, **res)),
@@ -128,14 +139,16 @@ def main() -> int:
     for shape in ("bench C=128 P=32768 K=8", "init BA C=160 P=24576 K=16"):
         prob = convert.ba_problem_from_numpy(arrays[shape], dev)
         ba.ba_solve(prob, iters=20)
+        bk.reset_launch_counts()
         device, wall_ms = kt.device_events(lambda: ba.ba_solve(prob, iters=20))
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
         n = sum(e.count for e in device)
+        cg = bk.launch_counts()["schur_off"] - 20  # one off per LM iteration, one per CG step
         kt.log(f"  ba_solve {a.label} {shape}, 20 iterations: device {busy_ms:.3f} ms, "
-               f"{n} device kernels, wall {wall_ms:.3f} ms (profiler on)")
+               f"{n} device kernels, {cg} CG steps, wall {wall_ms:.3f} ms (profiler on)")
         print(json.dumps(dict(code=a.label, kernel="ba_solve 20 iterations", shape=shape,
-                              card=smi, device_ms=busy_ms, device_kernels=n, wall_ms=wall_ms)),
-              flush=True)
+                              card=smi, device_ms=busy_ms, device_kernels=n, cg_steps=cg,
+                              wall_ms=wall_ms)), flush=True)
     return 0
 
 
