@@ -114,6 +114,18 @@
 // scratch but one F-float row per chunk.  Rows whose id is outside [0, C)
 // sit in the CSR's drop bucket (slots >= offsets[C]) and are never read.
 //
+// cam_broadcast (one kernel).  A copy: each observation's F floats from
+// its camera's row, zeros for ids outside [0, C).  Bound by the bytes it
+// moves (ci in, out out: 0.0041 ms at the server-GBA shape, 0.0088 ms at
+// the stress shape with F=6, 0.0163 with F=12).  One thread per 16-byte
+// piece of out, F a template parameter (12 and 6; any other F takes a
+// one-float-per-thread kernel), v gathered through the read-only path:
+// 1.0-1.3x the bound warm and 1.3-1.7x with L2 flushed before each call
+// (2.1x and 2.5x at local BA, launch-bound), where one thread per float
+// with a 64-bit division took 2.3-3.5x (H100 80GB HBM3, 700 W,
+// tools/time_ba_kernels.py).  Staging v in shared memory (every block loads
+// all C F floats) measured slower, streaming stores no faster cold.
+//
 // The TPU layout tricks (factored hi/lo one-hot, k-major lane packing,
 // (8,128) output blocks, the K<=16 cap) are not carried over: on Hopper a
 // thread gathers its camera's 12 floats directly (L1/L2 resident: the
@@ -568,16 +580,55 @@ __global__ void schur_point_kernel(const float* __restrict__ x, const float* __r
 }
 
 // ---------------------------------------------------------------------------
-// Camera -> observation broadcast: out[e, f] = v[ci[e], f], 0 out of range.
+// Camera -> observation broadcast: out[e, :] = v[ci[e], :], 0 out of range.
+// One thread per 16-byte piece of out (float index j = 4 i), so a warp
+// stores 512 contiguous bytes.  F is a template parameter (e = j / F is a
+// multiply and a shift).  F % 4 == 0 (12: R | t): the piece lies in one
+// row and is one float4 gather.  Even F (6: a CG vector): two 8-byte
+// halves, each inside one row (a pair of observations is three pieces).
+// cam_broadcast_any_kernel: any other F, one thread per float.
 // ---------------------------------------------------------------------------
+template <int F>
+__device__ __forceinline__ float2 broadcast_half(const float* __restrict__ v,
+                                                 const int* __restrict__ ci, int C, unsigned j) {
+  const unsigned e = j / F, f = j - e * F;
+  const int c = __ldg(ci + e);
+  if (c < 0 || c >= C) return make_float2(0.0f, 0.0f);
+  return __ldg(reinterpret_cast<const float2*>(v + (size_t)c * F + f));
+}
+
+template <int F>
 __global__ void cam_broadcast_kernel(const float* __restrict__ v, const int* __restrict__ ci,
-                                     int C, int F, long long n, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                                     int C, unsigned n, float* __restrict__ out) {
+  static_assert(F % 2 == 0, "even F only");
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned j = 4 * i;
+  if (j >= n) return;
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (F % 4 == 0) {
+    const unsigned e = j / F, f = j - e * F;
+    const int c = __ldg(ci + e);
+    if (c >= 0 && c < C) x = __ldg(reinterpret_cast<const float4*>(v + (size_t)c * F + f));
+  } else {
+    const float2 lo = broadcast_half<F>(v, ci, C, j);
+    if (j + 2 >= n) {  // n = E F is even: the last piece may be half
+      reinterpret_cast<float2*>(out)[2 * i] = lo;
+      return;
+    }
+    const float2 hi = broadcast_half<F>(v, ci, C, j + 2);
+    x = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  reinterpret_cast<float4*>(out)[i] = x;
+}
+
+__global__ void cam_broadcast_any_kernel(const float* __restrict__ v,
+                                         const int* __restrict__ ci, int C, int F, unsigned n,
+                                         float* __restrict__ out) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long e = i / F;
-  const int f = (int)(i - e * F);
-  const int c = ci[e];
-  out[i] = (c >= 0 && c < C) ? v[(size_t)c * F + f] : 0.0f;
+  const unsigned e = i / (unsigned)F;
+  const int c = __ldg(ci + e);
+  out[i] = (c >= 0 && c < C) ? __ldg(v + (size_t)c * F + (i - e * F)) : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -697,6 +748,14 @@ void launch_cam_sums(const float* y3, const int* order, const int* offsets, cons
   schur_off_combine_kernel<<<C, kThreads, 0, s>>>(part, chunks, out);
 }
 
+template <int F>
+void launch_broadcast(const float* v, const int* ci, int C, unsigned n, float* out,
+                      cudaStream_t s) {
+  const unsigned pieces = (n + 3) / 4;
+  cam_broadcast_kernel<F><<<(pieces + kThreads - 1) / kThreads, kThreads, 0, s>>>(v, ci, C, n,
+                                                                                 out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -791,15 +850,24 @@ int ccm_schur_wtv(const float* v, const float* W, const int* cam_idx, int C, int
   return (int)cudaGetLastError();
 }
 
-// out [E,F].
+// out [E,F]; E F < 2^32.  F = 12 and F = 6 take 16-byte pieces when v and
+// out are 16-byte aligned; any other F, or a table off that alignment, one
+// float per thread.
 int ccm_cam_broadcast(const float* v, const int* ci, int C, int F, int E, float* out,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)E * F;
-  if (n > 0) {
-    const long long nb = (n + kThreads - 1) / kThreads;
-    cam_broadcast_kernel<<<(unsigned)nb, kThreads, 0, s>>>(v, ci, C, F, n, out);
-  }
+  if (E < 0 || F < 0) return (int)cudaErrorInvalidValue;
+  const unsigned long long n = (unsigned long long)E * F;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > 0xFFFFFFF0ull) return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)v % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (vec && F == 12)
+    launch_broadcast<12>(v, ci, C, (unsigned)n, out, s);
+  else if (vec && F == 6)
+    launch_broadcast<6>(v, ci, C, (unsigned)n, out, s);
+  else
+    cam_broadcast_any_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        v, ci, C, F, (unsigned)n, out);
   return (int)cudaGetLastError();
 }
 

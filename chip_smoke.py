@@ -8,7 +8,8 @@ plain PyTorch version on the card, and drives the port's paths through their
 entry points with the launch counts set to 0 before each path and held to
 that path's own expected counts after it:
 
-  1. device and build;
+  1. device and build, and the tensor cores' 1-bit product: its fragment
+     mapping checked and its rate measured (``tools/mma_b1_rate.py``);
   2. the BA kernels at the server-GBA shapes, on a ragged case, at the
      client's local-BA widths (K=16 and K=32 observation slots, and a ragged
      K=12 case) and at its initialization BA's (C=160, P=24,576, K=16, every
@@ -23,11 +24,16 @@ that path's own expected counts after it:
      ``normal_blocks``, ``cam_reduce``, ``reproj_cost``,
      ``make_schur_matvec``, ``schur_ops``' rhs and wtv and ``cam_broadcast``
      (F=6 and F=12) at the stress shape (C=1024, P=131,072, K=8),
-     ``hamming_top2`` at 1024 x 16384; then the solve's wall and device
-     time;
-  5. ``hamming_top2`` against its plain version: 1024 x 16384 with a quarter
-     of the targets invalid, a ragged case, invalid queries, a single valid
-     target -- equal outputs, and bit-identical on a second run;
+     ``cam_broadcast`` (F=12) also at the local-BA, initialization-BA and
+     bench shapes, warm and with L2 flushed before each call, beside
+     ``index_select``; ``hamming_top2`` at 1024 x 1024, 1024 x 16384 and
+     1024 x 24576 against the 1-bit MMA rate measured in phase 1; then the
+     solve's wall and device time;
+  5. ``hamming_top2`` against its plain version: 1024 x 16384 and 1024 x
+     1024 with a quarter of the targets invalid, a ragged case, invalid
+     queries, a single valid target, ties inside one 8-target MMA tile,
+     across tiles and across the kernel's target slices, all targets equal
+     -- equal outputs, and bit-identical on a second run;
   6. the client bootstrap at 752x480: rendered corridor frames (EuRoC
      intrinsics and radtan) -> ``orb.extract`` -> ``build_frame`` ->
      ``search_for_initialization`` -> ``initialize_two_view``, gated on the
@@ -41,8 +47,8 @@ that path's own expected counts after it:
   9. ``cam_reduce`` (F=6 and 42 at the server-GBA and stress shapes, and a
      ragged case whose ids -1 and >= C must be dropped),
      ``make_schur_matvec`` with ``schur_ops``' rhs and wtv (server-GBA and
-     stress shapes) and ``reproj_cost`` (stress shape) against their plain
-     versions, bit-identical on a rerun;
+     stress shapes), ``reproj_cost`` and ``cam_broadcast`` F=6 (stress
+     shape) against their plain versions, bit-identical on a rerun;
  10. the GBA profiling path: ``profile_gba`` at the stress shape (C=1024,
      P=131,072, K=8), every component's device time;
  11. the single-agent client loop at full width: ``Tracker.process_image``
@@ -88,12 +94,12 @@ from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
-from tools.kernel_timing import (DEVICE_KERNELS, HUBER, blocks_entry, bound, broadcast_entry,
-                                 cost_entry, device_events, device_ms, kernel_ms, log, nbytes,
-                                 off_entry, problem_args, reduce_entry, rhs_wtv_entry,
-                                 schur_inputs, time_table)
+from tools import mma_b1_rate
+from tools.kernel_timing import (HUBER, blocks_entry, broadcast_entry, cost_entry,
+                                 device_events, log, off_entry, problem_args, reduce_entry,
+                                 rhs_wtv_entry, schur_inputs, time_table, top2_inputs,
+                                 top2_timing)
 
-POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
 SOURCE = "ccm_slam_tpu_torch/csrc/ba_kernels.cu"
 HAMMING_SOURCE = "ccm_slam_tpu_torch/csrc/hamming_kernels.cu"
@@ -112,7 +118,7 @@ KERNELS = [
 # schur_point is one template for off, rhs and wtv)
 CUDA_KERNELS = ("reproj_cost", "normal_blocks_point", "normal_blocks_camera",
                 "normal_blocks_finish", "sum_partials", "schur_point", "schur_off_combine",
-                "cam_broadcast", "cam_reduce", "cam_reduce_combine")
+                "cam_broadcast", "cam_broadcast_any", "cam_reduce", "cam_reduce_combine")
 # the bootstrap pair and the relocalization frame of
 # RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
 # JAX package's own errors on that pair against ground truth (rotation,
@@ -415,25 +421,34 @@ def port_kernels_ms(device, where=None):
 
 
 def top2_cases(dev):
-    """Phase-5 inputs {name: (q, qv, t, tv)}: the relocalization shape with a
-    quarter of the targets invalid, a ragged case, 30 invalid queries, and a
-    single valid target; each with a duplicated target (a tie)."""
-    g = torch.Generator(device="cpu").manual_seed(5)
+    """Phase-5 inputs {name: (q, qv, t, tv)}: the relocalization and
+    keyframe-pair shapes with a quarter of the targets invalid, a ragged
+    case, 30 invalid queries, and a single valid target, each with a
+    duplicated target (a tie) and query 0 equal to it (``top2_inputs``);
+    then queries at distance 1 from equal targets at 7 and 8 (across two
+    8-target MMA tiles) and at the last index of one of the kernel's 8
+    target slices and the first of the next; and all targets equal."""
     cases = {}
-    for name, Q, Tn in (("1024x16384", 1024, 16384), ("ragged 100x300", 100, 300),
-                        ("30 invalid queries", 128, 256), ("one valid target", 64, 500)):
-        q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
-        t = torch.randint(0, 256, (Tn, 32), generator=g, dtype=torch.uint8)
-        t[Tn // 2] = t[Tn // 3]
-        q[0] = t[Tn // 3]
-        qv = torch.ones(Q, dtype=torch.bool)
-        tv = torch.rand(Tn, generator=g) >= 0.25
-        tv[Tn // 3] = tv[Tn // 2] = True
+    for i, (name, Q, Tn) in enumerate((
+            ("1024x16384", 1024, 16384), ("1024x1024", 1024, 1024),
+            ("ragged 100x300", 100, 300), ("30 invalid queries", 128, 256),
+            ("one valid target", 64, 500), ("ties at tile and slice edges", 1000, 3001),
+            ("all targets equal", 96, 1000))):
+        q, qv, t, tv = top2_inputs(Q, Tn, torch.device("cpu"), seed=5 + i)
         if name.startswith("30"):
             qv[-30:] = False
         if name.startswith("one"):
             tv[:] = False
             tv[Tn - 7] = True
+        if name.startswith("ties"):
+            s = hk.slice_targets(Tn)
+            for k, (a, b) in enumerate(((7, 8), (s - 1, s), (3 * s - 1, 3 * s))):
+                t[b] = t[a]
+                q[1 + k] = t[a]
+                q[1 + k, k] ^= 1
+                tv[a] = tv[b] = True
+        if name.startswith("all"):
+            t[:] = t[0]
         cases[name] = tuple(x.to(dev) for x in (q, qv, t, tv))
     return cases
 
@@ -647,34 +662,6 @@ def walls_ms(fn, runs=5):
 def spread(ms):
     return (f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}; "
             f"{', '.join(f'{m:.3f}' for m in ms)})")
-
-
-def sm_clock_mhz():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return float(out.stdout.strip().splitlines()[0])
-
-
-def hamming_timing(dev):
-    """hamming_top2 at 1024 x 16384, as ``time_table`` reports a kernel:
-    device times from the profiler; the bound from this run's valid pairs
-    (the kernel skips invalid targets) at 16 popcounts per clock per SM."""
-    q, qv, t, tv = top2_cases(dev)["1024x16384"]
-    ms, ms_by, n, ev, _ = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), 50,
-                                 DEVICE_KERNELS["hamming_top2"])
-    plain_ms, _ = device_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
-    clock = sm_clock_mhz() * 1e6
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    popc = int(qv.sum()) * int(tv.sum()) * 8
-    n_bytes = nbytes(q, qv, t, tv, torch.empty(3, q.shape[0], dtype=torch.int32))
-    bound_ms, bound_by = bound(n_bytes, popc, POPC_PER_CLK_PER_SM * sms * clock)
-    log(f"  hamming_top2 1024x16384: kernel {ms:.4f} ms by {ms_by} ({n:g} device kernels/call; "
-        f"{ev:.4f} ms by events), plain {plain_ms:.4f} ms device, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {popc / 1e6:.1f} M popcounts at {POPC_PER_CLK_PER_SM}/clk/SM x {sms} SMs "
-        f"x {clock / 1e9:.3f} GHz; {n_bytes / 1e6:.2f} MB), library none")
-    return dict(ms=ms, ms_by=ms_by, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
 
 
 def front_end_timings(fe, frames, m_idx, m_ok, tr, reloc_frame):
@@ -964,13 +951,23 @@ def main() -> int:
     log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    libs = _build.build_all(["ba_kernels", "hamming_kernels"])  # one nvcc each, in parallel
-    log(f"[build] {', '.join(p.name for p in libs.values())} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        for line in _build.build_log(name).splitlines():
+    probe = mma_b1_rate.start_build()  # one nvcc each, all in parallel
+    libs = _build.build_all(["ba_kernels", "hamming_kernels"])
+    logs = {**{name: _build.build_log(name) for name in libs},
+            "mma_b1_rate": mma_b1_rate.finish_build(probe)}
+    log(f"[build] {', '.join(p.name for p in libs.values())}, "
+        f"{mma_b1_rate.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    for text in logs.values():
+        for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {line.strip()}")
+    rate = mma_b1_rate.measure(dev)
+    log(f"[build] 1-bit MMA (m16n8k256 and.popc): fragment mapping checked against host "
+        f"popcounts {'ok' if rate['tile_ok'] else 'FAIL'}; {rate['mma_per_s']:.4e} "
+        f"instructions/s, {rate['pairs_per_s']:.4e} pairs/s, "
+        f"{rate['mma_per_clk_per_sm']:.4f} per clock per SM at {rate['max_sm_clock_mhz']:g} MHz")
+    if not rate["tile_ok"]:
+        raise AssertionError("the 1-bit MMA tile disagrees with popcounts on the host")
     phase_done(1)
 
     # -- phase 2: kernels against their plain versions ---------------------
@@ -1082,13 +1079,16 @@ def main() -> int:
     local = local_inputs[16]
     time_table({"normal_blocks": blocks_entry(bk, local["prob"], local["csr"]),
                 "cam_reduce": reduce_entry(bk, local["prob"]),
-                "reproj_cost": cost_entry(bk, local["prob"])}, 4096 * 16, "local BA")
+                "reproj_cost": cost_entry(bk, local["prob"]),
+                "cam_broadcast F=12": broadcast_entry(bk, local["prob"], 12)},
+               4096 * 16, "local BA")
     log(f"[times] reproj_cost, the Schur operators and normal_blocks at the initialization "
         f"BA's shape; {smi}")
     init = init_inputs["prob"]
     time_table({"reproj_cost": cost_entry(bk, init),
                 **schur_entries(init, *(init_inputs[k] for k in ("W", "Vinv", "v", "q"))),
-                "normal_blocks": blocks_entry(bk, init, init_inputs["csr"])},
+                "normal_blocks": blocks_entry(bk, init, init_inputs["csr"]),
+                "cam_broadcast F=12": broadcast_entry(bk, init, 12)},
                init.cam_idx.numel(), "init BA")
     del init, init_inputs
     # every kernel is timed before the first long profiler window (the solve
@@ -1097,8 +1097,10 @@ def main() -> int:
     log(f"[times] normal_blocks, cam_reduce, reproj_cost, make_schur_matvec, rhs, wtv and "
         f"cam_broadcast at the stress shape; {smi}")
     new_times = stress_timings(stress, rng)
-    log(f"[times] hamming_top2; {smi}")
-    top2_times = hamming_timing(dev)
+    log(f"[times] hamming_top2 (relocalization against phase 7's arena, 24,576-slot arenas, "
+        f"keyframe pairs); {smi}")
+    top2_times = {f"{Q}x{Tn}": top2_timing(hk, top2_inputs(Q, Tn, dev), rate, f"{Q} x {Tn}")
+                  for Q, Tn in ((1024, 16384), (1024, 24576), (1024, 1024))}
     walls = time_solve(bench, 20, 5)
     wall = statistics.median(walls)
     port_ms = sum(gba[name] * times[name]["ms"] for name in times)
@@ -1141,8 +1143,8 @@ def main() -> int:
     phase_done(8)
 
     # -- phase 9: cam_reduce, make_schur_matvec and reproj_cost against plain --
-    log("[kernels] cam_reduce, make_schur_matvec, rhs, wtv and reproj_cost against their plain "
-        "versions")
+    log("[kernels] cam_reduce, make_schur_matvec, rhs, wtv, reproj_cost and cam_broadcast F=6 "
+        "against their plain versions")
     reduce_err = check_cam_reduce(dev)
     matvec_err = check_schur_matvec({"server GBA C=128 P=32768 K=8": bench,
                                      "stress C=1024 P=131072 K=8": stress}, rng)
@@ -1152,6 +1154,14 @@ def main() -> int:
     if not torch.equal(stress_cost, bk.reproj_cost(*problem_args(stress),
                                                    stress.intr.contiguous(), HUBER)):
         raise AssertionError("reproj_cost stress: rerun not bit-identical")
+    # profile_gba's broadcast of a CG vector (F=6) to the stress observations
+    ci6 = stress.cam_idx.reshape(-1).clamp(0, stress.R.shape[0] - 1).contiguous()
+    v6 = torch.as_tensor(rng.standard_normal((stress.R.shape[0], 6)).astype(np.float32),
+                         device=dev)
+    out6 = bk.cam_broadcast(v6, ci6)
+    compare("cam_broadcast F=6 stress", out6, bk.cam_broadcast_plain(v6, ci6), 0.0, 0.0)
+    if not torch.equal(out6, bk.cam_broadcast(v6, ci6)):
+        raise AssertionError("cam_broadcast F=6 stress: rerun not bit-identical")
     phase_done(9)
 
     # -- phase 10: the GBA profiling path ---------------------------------------
@@ -1174,7 +1184,7 @@ def main() -> int:
                for name, replaces in KERNELS]
     kernels.append(dict(name="hamming_top2", route="cuda", source=HAMMING_SOURCE,
                         replaces=f"{PALLAS}:121", launches=reloc["hamming_top2"],
-                        max_abs_err=hamming_err, **top2_times))
+                        max_abs_err=hamming_err, **top2_times["1024x16384"]))
     for name, replaces, err in (("cam_reduce", f"{PALLAS}:284", reduce_err),
                                 ("schur_matvec", f"{PALLAS}:496", matvec_err)):
         kernels.append(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,

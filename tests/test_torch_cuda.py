@@ -152,6 +152,34 @@ def test_cam_broadcast_kernel():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("F", [5, 6, 12])
+@pytest.mark.parametrize("case", ["ragged", "unaligned", "large_table"])
+def test_cam_broadcast_kernel_widths(F, case):
+    """The F=6 and F=12 kernels and the any-F one, exact and bit-identical
+    on a rerun: E odd and not a multiple of a block's span, ids out of range
+    both ways; a table one row into its storage (8 bytes off 16-byte
+    alignment at F=6: the any-F kernel); a table of 4,096 cameras (192 KB
+    at F=12)."""
+    dev = card()
+    g = torch.Generator(device="cpu").manual_seed(F)
+    C, E = (4096, 65537) if case == "large_table" else (37, 99999)
+    v = torch.randn(C + 1, F, generator=g).to(dev)
+    v = v[1:] if case == "unaligned" and F % 2 == 0 else v[:C]
+    ci = torch.randint(-5, C + 5, (E,), generator=g, dtype=torch.int32).to(dev)
+    bk.reset_launch_counts()
+    ours, again = bk.cam_broadcast(v, ci), bk.cam_broadcast(v, ci)
+    assert bk.launch_counts()["cam_broadcast"] == 2
+    assert torch.equal(ours.cpu(), bk.cam_broadcast_plain(v.cpu(), ci.cpu()))
+    assert torch.equal(ours, again)
+
+
+def test_cam_broadcast_kernel_empty():
+    dev = card()
+    v = torch.randn(4, 12, device=dev)
+    out = bk.cam_broadcast(v, torch.empty(0, dtype=torch.int32, device=dev))
+    assert out.shape == (0, 12)
+
+
 @pytest.mark.parametrize("E,C,F", [(262144, 128, 6), (262144, 128, 42), (9999, 37, 6)])
 def test_cam_reduce_kernel(E, C, F):
     """Against the masked index_add_; ids -1 and >= C dropped; bit-identical
@@ -397,6 +425,51 @@ def test_hamming_top2_kernel(name):
     again = hk.hamming_top2(*args)  # no atomics: bit-identical
     for a, b in zip(ours, again):
         assert torch.equal(a, b)
+
+
+def top2_mma_case(name, dev):
+    """(q, qv, t, tv) for the tensor-core kernel's edges: the main path's
+    shapes; Q not a multiple of 16 and T not of 8, with queries equal to
+    tied targets inside one 8-target tile, across two tiles, across two
+    slices and at the last target, and one tie whose lower target is
+    invalid; all targets equal; no valid target; invalid queries."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    Q, T = {"1024x1024": (1024, 1024), "1024x24576": (1024, 24576)}.get(name, (37, 1003))
+    q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
+    t = torch.randint(0, 256, (T, 32), generator=g, dtype=torch.uint8)
+    qv = torch.ones(Q, dtype=torch.bool)
+    tv = torch.rand(T, generator=g) >= 0.25
+    s = hk.slice_targets(T)
+    ties = [(3, 5), (7, 8), (s - 1, s), (2 * s - 1, 2 * s), (T - 2, T - 1), (11, 12)]
+    for i, (a, b) in enumerate(ties):
+        t[b] = t[a]
+        q[i] = t[a]
+        q[i, i % 32] ^= 1  # distance 1 from both: the tie is not at zero
+        tv[a] = tv[b] = True
+    tv[11] = False  # the lower of the last pair cannot win
+    if name == "all_equal":
+        t[:] = t[0]
+    if name == "no_valid_target":
+        tv[:] = False
+    if name == "invalid_queries":
+        qv[::3] = False
+    return [x.to(dev) for x in (q, qv, t, tv)]
+
+
+@pytest.mark.parametrize("name", ["1024x1024", "1024x24576", "ragged_ties", "all_equal",
+                                  "no_valid_target", "invalid_queries"])
+def test_hamming_top2_kernel_tiles_and_slices(name):
+    """Exact against the plain version (all three outputs) and bit-identical
+    on a rerun, where ties fall inside an MMA tile, across tiles and across
+    the cluster's slices."""
+    args = top2_mma_case(name, card())
+    hk.reset_launch_counts()
+    ours, again = hk.hamming_top2(*args), hk.hamming_top2(*args)
+    assert hk.launch_counts()["hamming_top2"] == 2
+    ref = hk.hamming_top2_plain(*(x.cpu() for x in args))
+    for a, b, c in zip(ours, ref, again):
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(a, c)
 
 
 def test_match_brute_on_card_matches_cpu():

@@ -6,6 +6,15 @@ window whose device kernels per call equal what the wrapper launches
 (``DEVICE_KERNELS``); the CUDA-event time stands in after three windows
 that miscount, and the result says so (``ms_by``).  Imports torch only: the
 kernels module is passed in, so a caller can time any checkout's port.
+
+Cold mode (``flush``): each timed call is preceded by a write of a buffer
+twice the card's L2 (``l2_flush``), so that the call finds its inputs in
+device memory and L2 full of another kernel's dirty lines, as a caller
+between other work would; the flush's own device kernels are picked out by
+name and left out of the time and of the kernels-per-call count.
+``cam_broadcast`` and its ``index_select`` are timed warm and cold
+(``COLD``): their inputs and outputs fit in L2, so back-to-back calls time
+L2, not device memory.
 """
 
 from __future__ import annotations
@@ -19,12 +28,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32, outside the tensor cores
 HUBER = 2.447651936
 REPS = 100                 # wrapper calls per timing window
+POPC_PER_CLK_PER_SM = 16   # 32-bit popcount throughput of sm_90 (CUDA guide)
 
 # device kernels one wrapper call launches
 DEVICE_KERNELS = dict(reproj_cost=2, normal_blocks=3, schur_off=3, schur_rhs=3, schur_wtv=1,
-                      cam_broadcast=1, cam_reduce=2, schur_matvec=3, hamming_top2=2)
+                      cam_broadcast=1, cam_reduce=2, schur_matvec=3, hamming_top2=1)
 LIBRARY = dict(cam_broadcast="index_select",
                cam_reduce="index_add_, float atomics: not deterministic")
+COLD = ("cam_broadcast",)  # kernels timed with L2 flushed as well
+L2_BYTES_FALLBACK = 50 * 2**20
 
 
 def log(msg: str) -> None:
@@ -62,21 +74,40 @@ def device_events(fn):
     return device, wall_ms
 
 
-def device_ms(fn, reps, split=None):
+def l2_flush(dev):
+    """A function that writes a buffer of twice the card's L2 (PyTorch's
+    fill kernel)."""
+    size = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
+    buf = torch.empty(2 * (size or L2_BYTES_FALLBACK) // 4, dtype=torch.float32, device=dev)
+    return buf.zero_
+
+
+def device_ms(fn, reps, split=None, flush=None):
     """(device ms per call, device kernels per call) over ``reps`` calls:
     the summed time of the device kernels the calls ran, from torch.profiler,
     so host dispatch and the gaps between launches are left out.  None for
     the time when the profiler saw no device activity.  ``split``, a dict,
-    receives each device kernel's us per call by its function name."""
+    receives each device kernel's us per call by its function name.  With
+    ``flush`` (``l2_flush``'s function) each call is preceded by a flush,
+    whose device kernels (named by a profile of the flush alone) are left
+    out."""
+    skip = set()
+    if flush is not None:
+        skip = {e.key for e in device_events(flush)[0]}
     for _ in range(3):
+        if flush is not None:
+            flush()
         fn()
     torch.cuda.synchronize()
 
     def loop():
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
 
     device, _ = device_events(loop)
+    device = [e for e in device if e.key not in skip]
     busy_us = sum(e.self_device_time_total for e in device)
     n = sum(e.count for e in device) / reps
     if split is not None:
@@ -92,18 +123,19 @@ def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def kernel_ms(fn, reps, want):
+def kernel_ms(fn, reps, want, flush=None):
     """(ms, ms_by, device kernels per call, event ms, split) of a kernel
     wrapper: the profiler's device time per call when it counted ``want``
     device kernels per call (what the wrapper launches), ``ms_by`` "device",
     and ``split`` the us per call of each device kernel.  The profiler loses
     events now and then, so a window that counts otherwise is measured
     again, up to three windows in all; after that the CUDA-event time stands
-    in and ``ms_by`` is "events"."""
-    ev = event_ms(fn, reps)
+    in and ``ms_by`` is "events" (with ``flush``, cold: the events then time
+    the flushes too)."""
+    ev = event_ms((lambda: (flush(), fn())) if flush is not None else fn, reps)
     split = {}
     for _ in range(3):
-        ms, n = device_ms(fn, reps, split)
+        ms, n = device_ms(fn, reps, split, flush)
         if ms is not None and n == want:
             return ms, "device", n, ev, split
     log(f"    profiler counted {n:g} device kernels per call where the wrapper launches "
@@ -123,9 +155,11 @@ def time_table(table, E, label):
     """Time every entry of ``table`` {name: (kernel fn, plain fn, bytes,
     flops per observation, library fn or None, device kernels per call)} on
     a problem of E observations; returns {name: dict(ms, ms_by, plain_ms,
-    bound_ms, bound_by, library_ms)}, the keys of a kernel's result line.
+    bound_ms, bound_by, library_ms)}, the keys of a kernel's result line;
+    kernels named in ``COLD`` add ms_cold, ms_cold_by and library_ms_cold.
     A name may carry a case after a space ("cam_broadcast F=6")."""
     out = {}
+    flush = None
     for name, (fk, fp, n_bytes, flops_per_obs, flib, want) in table.items():
         ms, ms_by, n_k, ev, split = kernel_ms(fk, REPS, want)
         plain_ms, n_p = device_ms(fp, REPS // 5)
@@ -140,6 +174,16 @@ def time_table(table, E, label):
             f"library {lib_s}")
         log(f"    {name} device kernels, us per call: "
             + ", ".join(f"{k} {us:.2f}" for k, us in split.items()))
+        if name.split()[0] in COLD:
+            flush = flush or l2_flush(torch.device("cuda", torch.cuda.current_device()))
+            cold, cold_by, n_c, _, split = kernel_ms(fk, REPS, want, flush)
+            lib_cold = device_ms(flib, REPS, flush=flush)[0] if flib is not None else None
+            out[name].update(ms_cold=cold, ms_cold_by=cold_by, library_ms_cold=lib_cold)
+            lib_s = f"{lib_cold:.4f}" if lib_cold is not None else "none"
+            log(f"  {name:<14} {label}, L2 flushed before each call: kernel {cold:.4f} ms by "
+                f"{cold_by}, {n_c:g} device kernels/call ("
+                + ", ".join(f"{k} {us:.2f} us" for k, us in split.items())
+                + f")  library {lib_s}")
     return out
 
 
@@ -236,3 +280,45 @@ def broadcast_entry(bk, prob, F):
     return (lambda: bk.cam_broadcast(v, ci), lambda: bk.cam_broadcast_plain(v, ci),
             nbytes(v, ci, torch.empty(E, F)), 0, lambda: torch.index_select(v, 0, ci),
             DEVICE_KERNELS["cam_broadcast"])
+
+
+def top2_inputs(Q, T, dev, seed=5):
+    """(q, qv, t, tv) for ``hamming_top2``: random descriptors, a quarter of
+    the targets invalid, target T//2 a copy of target T//3 (a tie, both
+    valid) and query 0 equal to it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
+    t = torch.randint(0, 256, (T, 32), generator=g, dtype=torch.uint8)
+    t[T // 2] = t[T // 3]
+    q[0] = t[T // 3]
+    qv = torch.ones(Q, dtype=torch.bool)
+    tv = torch.rand(T, generator=g) >= 0.25
+    tv[T // 3] = tv[T // 2] = True
+    return tuple(x.to(dev) for x in (q, qv, t, tv))
+
+
+def top2_timing(hk, args, rate, label):
+    """``hamming_top2`` (``hk`` its module) on ``args`` as ``time_table``
+    reports a kernel (warm: it reads under 1 MB).  The bound: its bytes, or
+    this run's valid (query, target) pairs at the tensor cores' 1-bit rate,
+    ``rate`` being ``tools/mma_b1_rate.measure``'s result; ``popc_bound_ms``
+    beside it reckons the same pairs at 8 popcounts each, 16 per clock per
+    SM at the largest SM clock (the bound of a popcount kernel)."""
+    q, qv, t, tv = args
+    pairs_per_s = rate["pairs_per_s"]
+    popc_per_s = POPC_PER_CLK_PER_SM * rate["sms"] * rate["max_sm_clock_mhz"] * 1e6
+    ms, ms_by, n, ev, split = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), REPS,
+                                       DEVICE_KERNELS["hamming_top2"])
+    plain_ms, _ = device_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
+    pairs = int(qv.sum()) * int(tv.sum())
+    n_bytes = nbytes(q, qv, t, tv, torch.empty(3, q.shape[0], dtype=torch.int32))
+    bound_ms, bound_by = bound(n_bytes, pairs, pairs_per_s)
+    popc_ms = bound(n_bytes, 8 * pairs, popc_per_s)[0]
+    log(f"  hamming_top2 {label}: kernel {ms:.4f} ms by {ms_by} ({n:g} device kernels/call; "
+        f"{ev:.4f} ms by events), plain {plain_ms:.4f} ms device, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {pairs / 1e6:.2f} M valid pairs at {pairs_per_s / 1e12:.3f} T pairs/s, "
+        f"the 1-bit MMA; {n_bytes / 1e6:.2f} MB), popcount bound {popc_ms:.4f} ms, library none")
+    log("    hamming_top2 device kernels, us per call: "
+        + ", ".join(f"{k} {us:.2f}" for k, us in split.items()))
+    return dict(ms=ms, ms_by=ms_by, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, popc_bound_ms=popc_ms)

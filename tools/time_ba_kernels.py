@@ -1,4 +1,4 @@
-"""Time the BA kernels of one checkout of the port where the main path runs them.
+"""Time the kernels of one checkout of the port where the main path runs them.
 
     python3 tools/time_ba_kernels.py [--root DIR] [--label NAME]
                                      [--device-kernels NAME=N,...]
@@ -14,23 +14,34 @@ that checkout.  The timing itself is ``tools/kernel_timing.py``, the
 yardstick of ``chip_smoke.py``: the profiler's device time per call from
 windows that count the device kernels the wrapper launches
 (``kernel_timing.DEVICE_KERNELS``; ``--device-kernels`` states another
-checkout's counts, e.g. ``schur_off=2,schur_matvec=2`` before the
-redesign), else CUDA events (``ms_by``).
+checkout's counts, e.g. ``hamming_top2=2`` for code whose
+``hamming_top2`` ran a partial and a merge kernel), else CUDA events
+(``ms_by``).  ``cam_broadcast`` and its ``index_select`` are timed warm and
+with L2 flushed before each call (``kernel_timing.COLD``).
 
 Shapes and what runs there on the main path:
-  bench     C=128,  P=32,768,  K=8   server GBA (every kernel)
+  bench     C=128,  P=32,768,  K=8   server GBA (every kernel; one
+                                     ``cam_broadcast`` F=12 per solve)
   init BA   C=160,  P=24,576,  K=16  the client's initialization BA, its
                                      empty slots on camera 0 (``schur_off``,
                                      ``schur_rhs``, ``schur_wtv``,
-                                     ``reproj_cost``, ``normal_blocks``)
+                                     ``reproj_cost``, ``normal_blocks``,
+                                     ``cam_broadcast`` F=12)
   local BA  C=40,   P=4,096,   K=16  the client's local BA, dense branch
-                                     (``reproj_cost``, ``normal_blocks``)
+                                     (``reproj_cost``, ``normal_blocks``,
+                                     ``cam_broadcast`` F=12: 66 of the
+                                     client loop's 67)
   stress    C=1024, P=131,072, K=8   ``profile_gba`` (``make_schur_matvec``,
                                      ``schur_rhs``, ``schur_wtv``,
                                      ``cam_broadcast`` at F=6 and F=12,
                                      ``reproj_cost``, ``normal_blocks``,
                                      ``cam_reduce``)
 ``cam_reduce`` (F=6, the clipped ids) is timed at every shape as well.
+``hamming_top2`` is timed at 1,024 x 1,024 (``track_reference_kf``; loop
+closing's keyframe pairs), 1,024 x 16,384 and 1,024 x 24,576
+(relocalization against the arena), on ``kernel_timing.top2_inputs``, its
+bound from the 1-bit MMA rate that ``tools/mma_b1_rate.py`` measures first
+in the same run (this checkout's probe).
 Last, after every kernel window (the profiler has lost events in windows
 that follow a long one), one 20-iteration ``ba_solve`` at the bench and
 init-BA shapes (both on the PCG branch) under the profiler: its device time
@@ -38,9 +49,10 @@ init-BA shapes (both on the PCG branch) under the profiler: its device time
 wall time.
 
 Prints one JSON line per (kernel, shape): ``kernel_timing.time_table``'s
-result (device ms per call, how it was measured, the plain version's ms,
-the bound, ``index_add_``'s ms for ``cam_reduce`` and ``index_select``'s for
-``cam_broadcast``) with the card's name and power limit.
+or ``top2_timing``'s result (device ms per call, how it was measured, the
+plain version's ms, the bound, ``index_add_``'s ms for ``cam_reduce`` and
+``index_select``'s for ``cam_broadcast``, warm and cold) with the card's
+name and power limit, and first the probe's line.
 """
 
 from __future__ import annotations
@@ -55,18 +67,23 @@ import numpy as np
 import torch
 
 import kernel_timing as kt
+import mma_b1_rate
 
 HERE = Path(__file__).resolve().parents[1]
 # shape -> kernels timed there
 SCHUR = ("schur_off", "schur_rhs", "schur_wtv")
 KERNELS = {
-    "bench C=128 P=32768 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR),
-    "init BA C=160 P=24576 K=16": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR),
-    "local BA C=40 P=4096 K=16": ("normal_blocks", "cam_reduce", "reproj_cost"),
+    "bench C=128 P=32768 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR,
+                                "cam_broadcast F=12"),
+    "init BA C=160 P=24576 K=16": ("normal_blocks", "cam_reduce", "reproj_cost", *SCHUR,
+                                   "cam_broadcast F=12"),
+    "local BA C=40 P=4096 K=16": ("normal_blocks", "cam_reduce", "reproj_cost",
+                                  "cam_broadcast F=12"),
     "stress C=1024 P=131072 K=8": ("normal_blocks", "cam_reduce", "reproj_cost", "schur_matvec",
                                    "schur_rhs", "schur_wtv", "cam_broadcast F=6",
                                    "cam_broadcast F=12"),
 }
+TOP2_SHAPES = ((1024, 1024), (1024, 16384), (1024, 24576))  # (queries, targets)
 
 
 def build_arrays():
@@ -105,7 +122,7 @@ def main() -> int:
     root = Path(a.root).resolve()
     sys.path.insert(0, str(root))
     from ccm_slam_tpu_torch import convert
-    from ccm_slam_tpu_torch.ops import ba_kernels as bk
+    from ccm_slam_tpu_torch.ops import ba_kernels as bk, hamming_kernels as hk
     from ccm_slam_tpu_torch.solvers import ba
 
     kt.log(f"[time_ba_kernels] {a.label}: kernels of {Path(bk.__file__).parents[1]}")
@@ -113,6 +130,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
+    rate = mma_b1_rate.measure(dev)
+    print(json.dumps(dict(code=a.label, kernel="mma_b1_rate", card=smi, **rate)), flush=True)
+    if not rate["tile_ok"]:
+        raise AssertionError("mma_b1_rate: the 1-bit MMA tile disagrees with host popcounts")
+    for Q, T in TOP2_SHAPES:
+        shape = f"{Q} x {T}"
+        res = kt.top2_timing(hk, kt.top2_inputs(Q, T, dev), rate, f"{a.label} {shape}")
+        print(json.dumps(dict(code=a.label, kernel="hamming_top2", shape=shape, card=smi, **res)),
+              flush=True)
     for shape, names in KERNELS.items():
         prob = convert.ba_problem_from_numpy(arrays[shape], dev)
         C, (P, K) = prob.R.shape[0], prob.cam_idx.shape
