@@ -11,7 +11,10 @@ across the same way (``feature_fields`` / ``frame_fields`` read them), so
 both packages' matching and geometry can run on identical inputs.
 ``map_state_fields`` / ``map_state_from_numpy`` / ``map_state_to_numpy`` do
 it for a whole ``MapState`` (every arena field, the cursors), and
-``system_config_from`` copies a configuration tree field by field.
+``system_config_from`` copies a configuration tree field by field.  The loop
+closer's state crosses the same way: ``sim3_from_numpy``,
+``vocabulary_from_numpy``, ``keyframe_db_from_numpy`` and
+``pose_graph_problem_from_numpy`` (each with its ``*_fields`` reader).
 """
 
 from __future__ import annotations
@@ -24,10 +27,14 @@ import torch
 
 from . import config as _config
 from .device import resolve_device
+from .models import keyframe_db as kdb
 from .models import map_store as ms
+from .ops.bow import Vocabulary
 from .ops.orb import FrameFeatures
 from .runtime.frame import Frame
 from .solvers.ba import BAProblem
+from .solvers.pose_graph import PoseGraphProblem
+from .utils.lie import Sim3
 
 BA_FIELDS = (
     "R", "t", "X", "cam_idx", "uv", "sigma2", "obs_valid", "cam_fixed",
@@ -169,3 +176,59 @@ def system_config_from(obj) -> _config.SystemConfig:
             val = cls(**{g.name: getattr(val, g.name) for g in dataclasses.fields(cls)})
         sections[f.name] = val
     return _config.SystemConfig(**sections)
+
+
+def _as(fields: Mapping, dev, **dtypes) -> dict:
+    return {name: torch.as_tensor(np.array(fields[name])).to(dev, dtype)
+            for name, dtype in dtypes.items()}
+
+
+def sim3_fields(obj) -> dict[str, np.ndarray]:
+    """s, R, t of a (batched) Sim3 of either package as numpy arrays."""
+    return {name: np.asarray(getattr(obj, name)) for name in ("s", "R", "t")}
+
+
+def sim3_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> Sim3:
+    """The port's Sim3 (float32) on ``device`` (the card unless told otherwise)."""
+    f32 = torch.float32
+    return Sim3(**_as(fields, resolve_device(device), s=f32, R=f32, t=f32))
+
+
+def vocabulary_fields(obj) -> dict[str, np.ndarray]:
+    return {name: np.asarray(getattr(obj, name)) for name in ("words", "idf")}
+
+
+def vocabulary_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> Vocabulary:
+    """The port's Vocabulary (uint8 words, float32 idf) on ``device``."""
+    return Vocabulary(**_as(fields, resolve_device(device), words=torch.uint8,
+                            idf=torch.float32))
+
+
+def keyframe_db_fields(obj) -> dict[str, np.ndarray]:
+    return {name: np.asarray(getattr(obj, name)) for name in ("vectors", "valid", "map_id")}
+
+
+def keyframe_db_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> kdb.KeyFrameDB:
+    """The port's KeyFrameDB on ``device`` (the card unless told otherwise)."""
+    return kdb.KeyFrameDB(**_as(fields, resolve_device(device), vectors=torch.float32,
+                                valid=torch.bool, map_id=torch.int32))
+
+
+_PG_ARRAYS = dict(fixed=torch.bool, vert_valid=torch.bool, i_idx=torch.int32,
+                  j_idx=torch.int32, edge_valid=torch.bool, weight=torch.float32)
+
+
+def pose_graph_problem_fields(obj) -> dict:
+    """Every field of a PoseGraphProblem (either package's) as numpy arrays;
+    its two Sim3s as ``sim3_fields`` dicts."""
+    out = {name: np.asarray(getattr(obj, name)) for name in _PG_ARRAYS}
+    out.update(S_w=sim3_fields(obj.S_w), S_meas=sim3_fields(obj.S_meas))
+    return out
+
+
+def pose_graph_problem_from_numpy(fields: Mapping, device=None) -> PoseGraphProblem:
+    """The port's PoseGraphProblem on ``device`` (the card unless told otherwise)."""
+    dev = resolve_device(device)
+    return PoseGraphProblem(S_w=sim3_from_numpy(fields["S_w"], dev),
+                            S_meas=sim3_from_numpy(fields["S_meas"], dev),
+                            **_as(fields, dev, **_PG_ARRAYS))

@@ -1,7 +1,7 @@
 """Fixed-capacity SoA map arenas: keyframes, landmarks, observations (PyTorch).
 
 Counterpart of ``ccm_slam_tpu/models/map_store.py``, the part the client
-runs:
+and the single-agent loop closer run:
 
 * entities live in struct-of-arrays arenas with validity masks: the arena
   index is the handle, ``(kf_id, client_id)`` keeps the reference's identity;
@@ -356,6 +356,53 @@ def covis_row(m: MapState, kf_idx) -> torch.Tensor:
     return torch.where(alive, row, 0)
 
 
+def add_loop_edge(kfs: KeyFrameStore, a, b):
+    """Record an undirected loop edge in both endpoints' fixed-size tables
+    (KeyFrame::AddLoopEdge; every closure appends).  Duplicates are no-ops.
+    Returns (kfs', n_dropped): n_dropped > 0 means an endpoint's table was
+    full (callers surface it; no silent caps)."""
+    dev = kfs.loop_edges.device
+
+    def app(tbl, i, v):
+        i = torch.as_tensor(i, device=dev).long()
+        v = _i32(v, dev)
+        row = tbl[i]
+        dup = torch.any(row == v)
+        free = row < 0
+        has_free = torch.any(free)
+        slot = torch.argmax(free.to(torch.uint8))  # the first free slot
+        can = has_free & ~dup
+        tbl = _add_at(tbl, (i.reshape(1), slot.reshape(1)),
+                      torch.where(can, v - row[slot], 0).reshape(1))
+        return tbl, (~dup & ~has_free).to(torch.int32)
+
+    tbl, d1 = app(kfs.loop_edges, a, b)
+    tbl, d2 = app(tbl, b, a)
+    return kfs.replace(loop_edges=tbl), d1 + d2
+
+
+def covis_neighbors(W, kf_idx, top_k: int, min_weight: int = 15):
+    """Top-k covisible neighbors of a keyframe (the weight >= 15 rule,
+    KeyFrame.cpp:673), lower index first among equal weights.
+    Returns (idx [top_k], weight [top_k], valid [top_k])."""
+    row = W[torch.as_tensor(kf_idx, device=W.device).long()]
+    w, idx = hamming.top_k_stable(row, top_k)
+    return idx, w, w >= min_weight
+
+
+def spanning_tree(m: MapState, W) -> torch.Tensor:
+    """parent[k]: the earlier-inserted alive keyframe with the highest
+    covisibility (KeyFrame.cpp:715-741), the first such slot among equal
+    weights; roots get NO_KF."""
+    order = m.kfs.insert_order
+    earlier = order[None, :] < order[:, None]
+    alive = m.kfs.valid & ~m.kfs.bad
+    Wm = torch.where(earlier & alive[None, :], W, -1)
+    best = torch.argmax(Wm, dim=1)
+    best_w = torch.gather(Wm, 1, best[:, None])[:, 0]
+    return torch.where((best_w > 0) & alive, best.to(torch.int32), NO_KF)
+
+
 def update_normal_and_depth(m: MapState, scale_factor: float = 1.2,
                             n_levels: int = 8) -> MapState:
     """Landmark viewing normals and scale-invariance distances from the
@@ -412,8 +459,8 @@ def nanmedian(x):
 def compute_distinctive_descriptors(m: MapState, chunk: int = 2048) -> MapState:
     """Per-landmark representative descriptor = the observation descriptor
     with the least median Hamming distance to the others
-    (MapPoint::ComputeDistinctiveDescriptors).  Distances are XOR + popcount
-    on the packed bytes (exact integers, as the reference's bit matmul)."""
+    (MapPoint::ComputeDistinctiveDescriptors).  Distances are exact integers,
+    as the reference's bit matmul (``hamming.hamming_self``)."""
     mps, kfs = m.mps, m.kfs
     slot_valid = _slot_valid(mps)
     kf = mps.obs_kf.clamp(0, kfs.capacity - 1).long()
@@ -424,7 +471,7 @@ def compute_distinctive_descriptors(m: MapState, chunk: int = 2048) -> MapState:
     for b0 in range(0, mps.capacity, chunk):
         d = descs[b0:b0 + chunk]
         sv = slot_valid[b0:b0 + chunk]
-        dist = hamming.hamming_pairwise(d[:, :, None, :], d[:, None, :, :]).to(torch.float32)
+        dist = hamming.hamming_self(d).to(torch.float32)
         pair_ok = sv[:, :, None] & sv[:, None, :]
         dist = torch.where(pair_ok, dist, big)
         med = torch.where(sv, median_last(dist), big)
@@ -522,7 +569,13 @@ def replace_mappoints(m: MapState, loser, winner, rebuild: bool = True) -> MapSt
     """Batched MapPoint::Replace: forward links to ``loser[i]`` move to
     ``winner[i]``, losers are marked bad, the reverse tables are rebuilt
     (unless deferred).  A keyframe row that ends up with the same landmark
-    twice keeps its first occurrence."""
+    twice keeps its first occurrence.
+
+    A winner that loses in the same batch (a chain x -> y -> z, which the
+    loop closer's fusion produces) is followed to the end of its chain, and
+    a link whose chain ends on a loser (a cycle) is dropped.  The reference
+    redirects one hop only and leaves such links on a landmark marked bad
+    (a declared divergence, ROADMAP section 3); without chains both agree."""
     Mcap = m.mps.capacity
     dev = loser.device
     act = (loser >= 0) & (winner >= 0) & (loser != winner)
@@ -530,10 +583,13 @@ def replace_mappoints(m: MapState, loser, winner, rebuild: bool = True) -> MapSt
     won = torch.full((Mcap,), -1, dtype=torch.int32, device=dev).scatter_reduce(
         0, safe_l, torch.where(act, winner, -1).to(torch.int32), "amax")
     redirect = torch.where(won >= 0, won, torch.arange(Mcap, dtype=torch.int32, device=dev))
+    for _ in range(max(1, (Mcap - 1).bit_length())):  # pointer jumping: chains to their end
+        redirect = redirect[redirect.long()]
     kfs = m.kfs
     old = kfs.mp_idx
     has = old >= 0
     new = torch.where(has, redirect[old.clamp(0, Mcap - 1).long()], old)
+    new = torch.where(has & (won >= 0)[new.clamp(0, Mcap - 1).long()], NO_MP, new)
     K, N = old.shape
     row_sorted_idx = torch.argsort(torch.where(has, new, Mcap + 1), dim=1, stable=True)
     row_sorted = torch.gather(new, 1, row_sorted_idx)

@@ -1,9 +1,13 @@
 """Batched 256-bit Hamming distance for ORB descriptors (PyTorch).
 
 Counterpart of ``ccm_slam_tpu/ops/hamming.py``.  Descriptors are ``uint8
-[N, 32]`` (256 bits, LSB-first per byte).  Distances are XOR + popcount on
-the packed bits (as four 64-bit words), exact in integers; the reference's
-bit-unpacked bf16 matmul is a TPU (MXU) artifact and is not copied.
+[N, 32]`` (256 bits, LSB-first per byte).  Paired distances are XOR +
+popcount on the packed bits (as four 64-bit words).  The dense cross and
+self distances are one float32 product of +-1 bit planes: exact integers
+in any summation order, and on an H100 1.3-21x faster than chunked XOR +
+popcount at the shapes the port calls them with
+(``tools/hamming_paths.py``).  The reference's bf16 product of {0,1}
+planes is not copied.
 
 Tie rule, everywhere: among equal distances the lowest index wins (the
 reference's ``jax.lax.top_k`` / ``argmin`` order), so callers that resolve
@@ -17,9 +21,6 @@ import torch
 INVALID_DIST = 256  # > max Hamming distance; masks invalid slots
 TH_LOW = 50   # reference ORBmatcher.cpp:63
 TH_HIGH = 100  # reference ORBmatcher.cpp:64
-
-# bytes of [Q_chunk, D, 32] XOR planes held at once by hamming_cross
-_CHUNK_BYTES = 1 << 27
 
 
 def unpack_bits(desc_u8):
@@ -59,18 +60,26 @@ def hamming_pairwise(a_u8, b_u8):
     return torch.sum(popcount64(_words(a_u8) ^ _words(b_u8)), dim=-1, dtype=torch.int32)
 
 
-def hamming_cross(query_u8, db_u8):
-    """Dense cross distance: [Q, 32] x [D, 32] uint8 -> [Q, D] int32 in [0, 256].
+def _signs(desc_u8):
+    """uint8 [..., 32] -> float32 [..., 256] of +-1 (bit 1 -> -1)."""
+    return unpack_bits(desc_u8).to(torch.float32).mul_(-2.0).add_(1.0)
 
-    Computed in row chunks so the [chunk, D, 32] XOR planes stay bounded."""
-    Q, D = query_u8.shape[0], db_u8.shape[0]
-    out = torch.empty(Q, D, dtype=torch.int32, device=query_u8.device)
-    q64, d64 = _words(query_u8), _words(db_u8)
-    step = max(1, _CHUNK_BYTES // max(D * 32, 1))
-    for q0 in range(0, Q, step):
-        x = q64[q0:q0 + step, None, :] ^ d64[None]
-        out[q0:q0 + step] = torch.sum(popcount64(x), dim=-1, dtype=torch.int32)
-    return out
+
+def _sign_distance(dot):
+    """Hamming distance from a dot product of +-1 planes: exact, since every
+    partial sum of +-1 terms is an integer of magnitude <= 256."""
+    return ((256.0 - dot) * 0.5).to(torch.int32)
+
+
+def hamming_cross(query_u8, db_u8):
+    """Dense cross distance: [Q, 32] x [D, 32] uint8 -> [Q, D] int32 in [0, 256]."""
+    return _sign_distance(_signs(query_u8) @ _signs(db_u8).T)
+
+
+def hamming_self(desc_u8):
+    """Distances among each row's descriptors: [B, O, 32] -> [B, O, O] int32."""
+    s = _signs(desc_u8)
+    return _sign_distance(s @ s.transpose(1, 2))
 
 
 def masked_hamming_cross(query_u8, query_valid, db_u8, db_valid):
@@ -110,11 +119,11 @@ def mutual_best(dist):
 
 
 def top_k_stable(x, k: int):
-    """(values, indices) of the k largest entries of a 1-D tensor, lower index
-    first among equals (``jax.lax.top_k``'s order; ``torch.topk`` promises
-    none)."""
-    order = torch.sort(x, descending=True, stable=True).indices[:k]
-    return x[order], order
+    """(values, indices) of the k largest entries along the last axis, lower
+    index first among equals (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(x, -1, order), order
 
 
 def rotation_histogram_filter(angle_q, angle_t, match_valid, n_bins: int = 30, keep: int = 3):

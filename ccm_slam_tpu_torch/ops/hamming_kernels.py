@@ -15,8 +15,9 @@ the tensor cores' 1-bit product (popc(q & t) of 16 x 8 (query, target)
 tiles, d = popc(q) + popc(t) - 2 popc(q & t)), the best-2 kept as packed
 (distance, index) keys under integer min/max, the ``SLICES`` target slices
 of each 32-query group merged in a thread-block cluster.
-``hamming_top2_plain`` beside it is the same function in PyTorch (XOR +
-popcount distances, argmin, masked min).  The wrapper takes the plain version only for tensors on the CPU; for
+``hamming_top2_plain`` beside it is the same function in PyTorch
+(``hamming_cross``'s +-1 product, argmin, masked min).  The wrapper takes
+the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches (plain calls do not count).
 """

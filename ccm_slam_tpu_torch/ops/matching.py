@@ -133,8 +133,13 @@ def search_for_triangulation(f1_desc, f1_valid, f1_xy, f1_angle, f1_sigma2,
 
 
 def predict_octave(dist, max_dist, scale_factor: float = 1.2, n_levels: int = 8):
-    """MapPoint::PredictScale: expected detection octave from viewing distance."""
+    """MapPoint::PredictScale: expected detection octave from viewing distance.
+
+    A NaN distance ratio (a landmark whose ``max_dist`` is NaN) gives octave
+    0, as the reference's cast of NaN to int32 does; torch's cast would give
+    INT_MIN on the CPU and 0 on the card."""
     ratio = max_dist / torch.clamp(dist, min=1e-9)
     log_s = torch.log(torch.tensor(scale_factor, dtype=torch.float32, device=ratio.device))
     oct_f = torch.ceil(torch.log(ratio) / log_s)
+    oct_f = torch.where(torch.isnan(oct_f), 0.0, oct_f)
     return torch.clamp(oct_f, 0, n_levels - 1).to(torch.int32)

@@ -15,7 +15,9 @@ cases: odd sizes and out-of-range camera indices.  ``init_ba_problem_arrays``
 out: two keyframes in a 160 x 24,576 x 16 arena, every empty slot on camera 0.  ``client_map_arrays``
 (no counterpart) is a small client map with frames around it, as plain
 arrays, so both packages' map, tracking and mapping stages start from the
-same state.
+same state.  ``pose_graph_arrays`` (no counterpart) is a Sim(3) pose graph
+(a chain with skip and loop edges, perturbed measurements, drifted
+vertices) as ``convert.pose_graph_problem_fields`` gives one.
 
 ``make_problem`` wraps the first as the port's ``BAProblem`` on a device.
 """
@@ -376,3 +378,39 @@ def client_map_arrays(n_kf=6, n_frames=3, kf_cap=16, mp_cap=512, n_feat=128, max
             valid=valid, R_cw=np.eye(3, dtype=np.float32), t_cw=np.zeros(3, np.float32),
             mp=np.full(N, -1, np.int32)))
     return fields, frames, poses
+
+
+def pose_graph_arrays(V=14, seed=0, noise=0.02):
+    """A chain of V Sim3 vertices along z with a yaw wave, skip edges (i, i-2)
+    on even i and two loop edges back to vertices 0 and 1; the measurements
+    are the true relative poses perturbed by ``noise``, the vertices start
+    drifted in proportion to their index, vertex 0 is fixed and vertex
+    V//2 + 1 invalid, edge 3 invalid; weights in [0.5, 1.5].  No edge error
+    is exactly the identity."""
+    import torch
+
+    from .solvers.pose_graph import relative_sim3
+    from .utils.lie import Sim3
+
+    rng = np.random.default_rng(seed)
+    xi = np.zeros((V, 7), np.float32)
+    xi[:, 2] = -np.arange(V)
+    xi[:, 4] = 0.3 * np.sin(np.arange(V)) + 0.2
+    gt = Sim3.exp(torch.as_tensor(xi))
+    ii = np.asarray(list(range(1, V)) + list(range(2, V, 2)) + [V - 1, V - 2], np.int32)
+    jj = np.asarray(list(range(0, V - 1)) + list(range(0, V - 2, 2)) + [0, 1], np.int32)
+    E = len(ii)
+
+    S_ij = Sim3.exp(torch.as_tensor(rng.normal(0, noise, (E, 7)), dtype=torch.float32)).compose(
+        relative_sim3(gt[torch.as_tensor(ii).long()], gt[torch.as_tensor(jj).long()]))
+    drift = rng.normal(0, 0.05, (V, 7)) * (np.arange(V) / V)[:, None]
+    S_w = Sim3.exp(torch.as_tensor(drift, dtype=torch.float32)).compose(gt)
+    edge_valid = np.ones(E, bool)
+    edge_valid[3] = False
+
+    def fields(S):
+        return {k: getattr(S, k).numpy().copy() for k in ("s", "R", "t")}
+
+    return dict(S_w=fields(S_w), fixed=np.arange(V) == 0, vert_valid=np.arange(V) != V // 2 + 1,
+                i_idx=ii, j_idx=jj, S_meas=fields(S_ij), edge_valid=edge_valid,
+                weight=rng.uniform(0.5, 1.5, E).astype(np.float32))

@@ -10,10 +10,12 @@ deterministic step run right after each keyframe insertion.
   SearchInNeighbors (:471-547)   -> fuse_neighbors()   (fuse_into, _fuse_subset)
   LocalBundleAdjustmentClient    -> local_ba()
 
-The server and trimming functions (``cull_mappoints_server``,
-``keyframe_redundancy``, ``cull_redundant_keyframes``, ``trim_keyframes``)
-are not ported yet.  ``jax.lax.top_k`` becomes ``top_k_stable`` (lower index
-first among equals).
+Redundant-keyframe culling (KeyFrameCullingV3, :771-863), which the
+single-agent standalone system runs: ``keyframe_redundancy()`` and
+``cull_redundant_keyframes()``.  The server and trimming functions
+(``cull_mappoints_server``, ``trim_keyframes``) are not ported yet.
+``jax.lax.top_k`` becomes ``top_k_stable`` (lower index first among
+equals).
 """
 
 from __future__ import annotations
@@ -304,6 +306,54 @@ def fuse_neighbors(m: ms.MapState, kf_idx, cam, cfg: SystemConfig, n_neighbors: 
     m = ms.update_normal_and_depth(m, sf, cfg.extractor.n_levels)
     m = ms.compute_distinctive_descriptors(m)
     return m, n_add, n_merge, redirect
+
+
+def keyframe_redundancy(m: ms.MapState, cfg: SystemConfig):
+    """Per-keyframe redundancy ratio (KeyFrameCullingV3, Mapping.cpp:771-863):
+    the fraction of a keyframe's landmarks observed by >= 3 other keyframes at
+    the same or a finer pyramid scale (+1 tolerance).  Counts are integers,
+    the ratio fp32.  Returns ratio [K] (0 for dead keyframes)."""
+    kfs, mps = m.kfs, m.mps
+    K, N = kfs.capacity, kfs.n_feat
+    dev = kfs.mp_idx.device
+    mp = kfs.mp_idx
+    has = (mp >= 0) & kfs.feat_valid
+    mpc = mp.clamp(0, mps.capacity - 1).long()
+    # octave of every observation of a landmark, through the reverse table
+    obs_kf = mps.obs_kf.clamp(0, K - 1).long()
+    obs_feat = mps.obs_feat.clamp(0, N - 1).long()
+    obs_ok = ms._slot_valid(mps)
+    obs_oct = kfs.octave[obs_kf, obs_feat]            # [M,O]
+    p_oct, p_ok, p_kf = obs_oct[mpc], obs_ok[mpc], mps.obs_kf[mpc]  # [K,N,O]
+    fine = (p_ok & (p_oct <= kfs.octave[..., None] + 1)
+            & (p_kf != torch.arange(K, device=dev)[:, None, None]))
+    redundant = has & (torch.sum(fine, dim=-1) >= 3)
+    n_mps = torch.sum(has, dim=1)
+    ratio = torch.sum(redundant, dim=1) / torch.clamp(n_mps, min=1)
+    alive = kfs.valid & ~kfs.bad
+    return torch.where(alive & (n_mps > 0), ratio.to(torch.float32), 0.0)
+
+
+def cull_redundant_keyframes(m: ms.MapState, cfg: SystemConfig, protect_recent: int = 20):
+    """Erase keyframes whose redundancy ratio reaches RedThres, except the
+    newest ``protect_recent``, the two oldest (the gauge anchors) and the
+    endpoints of loop edges.  Returns (map, n_culled).
+
+    The loop-edge rule is the reference's (KeyFrame::AddLoopEdge sets
+    mbNotErase, which SetBadFlag honours); the JAX package culls such
+    keyframes (a declared divergence, ROADMAP section 3)."""
+    ratio = keyframe_redundancy(m, cfg)
+    kfs = m.kfs
+    alive = kfs.valid & ~kfs.bad
+    order = kfs.insert_order
+    newest = torch.max(torch.where(alive, order, -1))
+    recent = order > newest - protect_recent
+    oldest = torch.sort(torch.where(alive, order, ms._I32_MAX)).values[:2]
+    anchor = (order == oldest[0]) | (order == oldest[1])
+    looped = torch.any(kfs.loop_edges >= 0, dim=1)
+    kill = alive & ~recent & ~anchor & ~looped & (ratio >= cfg.mapping.red_thres)
+    m = ms.compact_observations(ms.erase_keyframes(m, kill))
+    return m, torch.sum(kill)
 
 
 def local_ba(m: ms.MapState, kf_idx, cam, cfg: SystemConfig, iters: int = 15):

@@ -83,8 +83,11 @@ def so3_log(R):
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     w = vee(R - R.transpose(-1, -2)) * 0.5  # = sin(theta) * axis
-    # sin from the skew part (well-conditioned near pi, unlike sqrt(1-cos^2))
-    sin_theta = torch.linalg.vector_norm(w, dim=-1)
+    # sin from the skew part (well-conditioned near pi, unlike sqrt(1-cos^2));
+    # sqrt(sum(w * w)), as jnp.linalg.norm computes it: its derivative at an
+    # exactly symmetric R is NaN in both packages (ROADMAP section 3), where
+    # torch.linalg.vector_norm's would be 0
+    sin_theta = torch.sqrt(torch.sum(w * w, dim=-1))
     theta = torch.atan2(sin_theta, cos_theta)
 
     # Generic branch: phi = theta / sin(theta) * w  (theta/sin -> 1 at 0)
@@ -384,6 +387,10 @@ class Sim3:
         Rt = self.R.transpose(-1, -2)
         s_inv = 1.0 / self.s
         return Sim3(s=s_inv, R=Rt, t=-s_inv[..., None] * (Rt @ self.t[..., None])[..., 0])
+
+    def __getitem__(self, idx) -> "Sim3":
+        """The transforms at ``idx`` of the batch axis."""
+        return Sim3(s=self.s[idx], R=self.R[idx], t=self.t[idx])
 
     def to_se3_scaled(self) -> SE3:
         """[R, t/s] conversion used when projecting a Sim3 back to a rigid

@@ -55,7 +55,19 @@ that path's own expected counts after it:
      over 200 rendered 752x480 corridor frames (rendered on the card first)
      with ``rendered_ci_config(1.0)``, gated on tracking, LOST and keyframe
      ATE against ground truth; per-frame wall times, device kernels and busy
-     share of profiled frames, host reads.
+     share of profiled frames, host reads;
+ 12. the single-agent loop at full width: ``StandaloneSystem.process_image``
+     over the 340 rendered 752x480 frames of the loop circuit
+     (``rendered_ci_config(1.0)``, 1,024 words): tracking, the vocabulary
+     bootstrap, loop detection, ``estimate_sim3`` (``match_brute``: the
+     ``hamming_top2`` kernel), the loop correction with its Sim(3) essential
+     graph, GBA at 160 keyframe slots (the PCG branch's kernels) and
+     redundant-keyframe culling, then ``run_gba(40)``; gated on tracking,
+     LOST, a closure, a GBA, loop edges on both endpoints, map structure and
+     keyframe ATE; walls per frame, per loop-closing stage, of the bootstrap
+     and of each GBA (with its device time and CG steps), and the device
+     kernels and busy share of the closing ``try_close`` replayed under the
+     profiler.
 
 It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
@@ -89,10 +101,13 @@ from ccm_slam_tpu_torch.models import map_store as ms
 from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_kernels as hk
 from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
 from ccm_slam_tpu_torch.profile_gba import profile_gba
-from ccm_slam_tpu_torch.runtime import mapping, tracking
+from ccm_slam_tpu_torch.ops import bow
+from ccm_slam_tpu_torch.runtime import loop_closing, mapping, tracking
 from ccm_slam_tpu_torch.runtime.frame import build_frame
+from ccm_slam_tpu_torch.runtime.loop_closing import LoopFinder
+from ccm_slam_tpu_torch.runtime.standalone import StandaloneSystem
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
-from ccm_slam_tpu_torch.solvers import ba, pose_opt
+from ccm_slam_tpu_torch.solvers import ba, pose_graph, pose_opt
 from ccm_slam_tpu_torch.utils.camera import Camera
 from tools import mma_b1_rate
 from tools.kernel_timing import (HUBER, blocks_entry, broadcast_entry, cost_entry,
@@ -114,11 +129,12 @@ KERNELS = [
     ("cam_broadcast", f"{PALLAS}:324"),
 ]
 
-# the __global__ functions of csrc/ba_kernels.cu (without the _kernel suffix;
-# schur_point is one template for off, rhs and wtv)
+# the __global__ functions of csrc/ba_kernels.cu and csrc/hamming_kernels.cu
+# (without the _kernel suffix; schur_point is one template for off, rhs and wtv)
 CUDA_KERNELS = ("reproj_cost", "normal_blocks_point", "normal_blocks_camera",
                 "normal_blocks_finish", "sum_partials", "schur_point", "schur_off_combine",
-                "cam_broadcast", "cam_broadcast_any", "cam_reduce", "cam_reduce_combine")
+                "cam_broadcast", "cam_broadcast_any", "cam_reduce", "cam_reduce_combine",
+                "top2")
 # the bootstrap pair and the relocalization frame of
 # RenderedSequence("corridor", seed=0, n_frames=200, span=(0, 0.22)), and the
 # JAX package's own errors on that pair against ground truth (rotation,
@@ -135,6 +151,13 @@ MIN_ERR_GATE_DEG = (0.5, 5.0)
 CLIENT_FRAMES = 200
 JAX_CLIENT_ATE_M = 0.05348373204469681
 PROFILED_FRAMES = (150, 151, 152)  # frames run under torch.profiler
+# phase 12: the standalone system on RenderedSequence("loop", seed=0,
+# n_frames=340, span=(0, 1.08)) at 752x480, and the JAX package's own run of
+# it (``python3 tools/jax_loop_ate.py --factor 1.0``, JAX on the CPU: 339 of
+# 340 frames tracked, not LOST, 1 loop closed, 2 GBA runs, 137 keyframes,
+# keyframe ATE 0.1816 m after the final run_gba(40) over a 37.72 m span)
+LOOP_FRAMES = 340
+JAX_LOOP_ATE_M = 0.18155796825885773
 CAMERA_PERIOD_MS = 50.0            # EuRoC's 20 fps
 PROFILE_REPS = 20                  # phase 10: profile_gba repetitions
 
@@ -427,14 +450,25 @@ def top2_cases(dev):
     duplicated target (a tie) and query 0 equal to it (``top2_inputs``);
     then queries at distance 1 from equal targets at 7 and 8 (across two
     8-target MMA tiles) and at the last index of one of the kernel's 8
-    target slices and the first of the next; and all targets equal."""
+    target slices and the first of the next; all targets equal; and the
+    vocabulary bootstrap's shape (phase 12): 160 keyframe slots x 1,024
+    feature slots against 1,024 words, the features of three keyframes
+    valid (98% of the queries invalid), every word valid and a copy of a
+    valid feature, two words equal."""
     cases = {}
     for i, (name, Q, Tn) in enumerate((
             ("1024x16384", 1024, 16384), ("1024x1024", 1024, 1024),
             ("ragged 100x300", 100, 300), ("30 invalid queries", 128, 256),
             ("one valid target", 64, 500), ("ties at tile and slice edges", 1000, 3001),
-            ("all targets equal", 96, 1000))):
+            ("all targets equal", 96, 1000), ("bootstrap 163840x1024", 160 * 1024, 1024))):
         q, qv, t, tv = top2_inputs(Q, Tn, torch.device("cpu"), seed=5 + i)
+        if name.startswith("bootstrap"):
+            qv = (torch.arange(Q) < 3 * 1024) & (torch.arange(Q) % 1024 < 1000)
+            g = torch.Generator(device="cpu").manual_seed(5 + i)
+            valid_rows = torch.nonzero(qv)[:, 0]
+            t = q[valid_rows[torch.randperm(len(valid_rows), generator=g)[:Tn]]]
+            t[Tn - 1] = t[Tn // 2]
+            tv = torch.ones(Tn, dtype=torch.bool)
         if name.startswith("30"):
             qv[-30:] = False
         if name.startswith("one"):
@@ -938,6 +972,193 @@ def check_client_loop(dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the single-agent loop (StandaloneSystem) at full width.
+# ---------------------------------------------------------------------------
+
+
+class StageWalls:
+    """Wall ms of named calls, the device synchronized before and after each:
+    wraps module functions and class methods for one phase, and restores
+    them."""
+
+    def __init__(self):
+        self.ms, self._undo = {}, []
+
+    def wrap(self, owner, attr, name):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def loop_want(sys_):
+    """The kernel launches of a StandaloneSystem run, from what it counted:
+    the tracker's (``client_want``), per GBA of n iterations at 160 keyframe
+    slots the PCG branch's ``solve_launches(n)``, and one hamming_top2 per
+    ``estimate_sim3`` attempt (its ``match_brute``), per BoW transform and per
+    vocabulary training iteration (each takes its nearest words from it)."""
+    want = client_want(sys_.tracker)
+    gba = solve_launches(sys_.stats["gba_iters"], pcg=True, calls=sys_.stats["gba_runs"])
+    for name, n in gba.items():
+        lo, hi = n if isinstance(n, tuple) else (n, n)
+        w = want.get(name, 0)
+        wlo, whi = w if isinstance(w, tuple) else (w, w)
+        want[name] = (wlo + lo, whi + hi)
+    f = sys_.finder.stats
+    want["hamming_top2"] += f["sim3_attempts"] + f["bow_transforms"] + sys_.stats["vocab_iters"]
+    return want
+
+
+def check_standalone_loop(dev, smi):
+    """Phase 12: StandaloneSystem.process_image over LOOP_FRAMES rendered
+    752x480 loop-circuit frames, then run_gba(40), counted; gated as the JAX
+    package's rendered loop gate (tests/test_rendered_loop.py:34-58) plus
+    twice the JAX package's own ATE.  Returns the counts."""
+    cfg = config.rendered_ci_config(factor=1.0)
+    seq = RenderedSequence(world="loop", seed=0, n_frames=LOOP_FRAMES, span=(0.0, 1.08),
+                           cam=cfg.camera, backend="torch", device=dev)
+    t0 = time.perf_counter()
+    images = [seq.render_frame(i) for i in range(LOOP_FRAMES)]
+    torch.cuda.synchronize()
+    log(f"  rendered {LOOP_FRAMES} frames {tuple(images[0].shape)} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stamps = [seq.gt_pose(i)[0] for i in range(LOOP_FRAMES)]
+    sys_ = StandaloneSystem(cfg=cfg, cam=Camera.from_config(cfg.camera, dev), n_words=1024,
+                            device=dev)
+    walls, gbas, closing = [], [], {}
+    stages = StageWalls()
+    for owner, attr, name in ((bow, "train_vocabulary", "vocabulary bootstrap"),
+                              (LoopFinder, "detect", "try_close stage detect"),
+                              (loop_closing, "estimate_sim3", "try_close stage estimate_sim3"),
+                              (loop_closing, "guided_projection_count",
+                               "try_close stage guided projection"),
+                              (loop_closing, "correct_loop", "try_close stage correct_loop"),
+                              (pose_graph, "optimize_pose_graph",
+                               "correct_loop's pose graph")):
+        stages.wrap(owner, attr, name)
+    run_gba = sys_.run_gba
+
+    def traced_gba(iters=20):
+        """Each GBA's wall, device time (profiler) and CG steps (schur_off
+        launches less the one per LM iteration for the initial residual)."""
+        off0 = bk.launch_counts()["schur_off"]
+        cost, device, wall = profiled(lambda: run_gba(iters))
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        gbas.append((iters, wall, busy, bk.launch_counts()["schur_off"] - off0 - iters,
+                     sum(e.count for e in device)))
+        return cost
+
+    sys_.run_gba = traced_gba
+
+    def snapshot_closing(finder):
+        """Keep the inputs of the first try_close that closes, for a replay
+        under the profiler after the counted run."""
+        try_close = finder.try_close
+
+        def wrapped(m, kf_idx, sample=None):
+            state = dict(m=m, kf_idx=kf_idx, db=finder.db, prev=list(finder.prev_groups),
+                         last=finder.last_loop_kf_id, rng=finder.rng.get_state())
+            out = try_close(m, kf_idx, sample)
+            if out[1] and not closing:
+                closing.update(state)
+            return out
+
+        finder.try_close = wrapped
+
+    def drive():
+        tracked, wrapped = 0, False
+        for i in range(LOOP_FRAMES):
+            t1 = time.perf_counter()
+            out = sys_.process_image(images[i], stamps[i])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            tracked += out is not None
+            if sys_.finder is not None and not wrapped:
+                snapshot_closing(sys_.finder)
+                wrapped = True
+        in_run = dict(sys_.stats)
+        sys_.run_gba(40)  # the final GBA on quiescence (Communicator.cpp:456-480)
+        return tracked, in_run
+
+    t0 = time.perf_counter()
+    try:
+        (tracked, in_run), counts = counted("standalone loop", drive,
+                                            lambda _: loop_want(sys_))
+    finally:
+        stages.restore()
+    loop_s = time.perf_counter() - t0
+    m = sys_.tracker.map
+    alive = (m.kfs.valid & ~m.kfs.bad).cpu().numpy()
+    edge_kfs = int((alive & (m.kfs.loop_edges.cpu().numpy() >= 0).any(1)).sum())
+    structure = ms.check_structure(m)
+    ts, est = kf_trajectory(m)
+    gt_ts, gt_pos, _ = seq.ground_truth()
+    gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
+    rmse, _ = ate_rmse(est, gt, align="sim3")
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    gate = max(0.115 * span + 0.05, 2.0 * JAX_LOOP_ATE_M)
+    f = sys_.finder.stats
+    ok = (sys_.tracker.state != LOST and tracked >= 0.8 * LOOP_FRAMES
+          and in_run["loops_closed"] >= 1 and in_run["gba_runs"] >= 1 and edge_kfs >= 2
+          and structure == [] and rmse < gate and f["sim3_attempts"] >= 1)
+    s = sys_.tracker.stats
+    log(f"  {tracked}/{LOOP_FRAMES} frames tracked (>= {0.8 * LOOP_FRAMES:.0f}), state "
+        f"{['NOT_INITIALIZED', 'OK', 'LOST'][sys_.tracker.state]} (not LOST); "
+        f"{in_run['loops_closed']} loop(s) closed and {in_run['gba_runs']} GBA(s) in the run "
+        f"(>= 1 each), {f['sim3_attempts']} estimate_sim3 attempts, {f['bow_transforms']} BoW "
+        f"transforms; {edge_kfs} alive keyframes with a loop edge (>= 2); check_structure "
+        f"{len(structure)} findings (0); {len(ts)} keyframes alive ({s['kf_created']} created); "
+        f"keyframe ATE after run_gba(40) {rmse:.4f} m over a {span:.3f} m span (gate "
+        f"{gate:.4f} m = max(0.115 span + 0.05, 2 x the JAX package's {JAX_LOOP_ATE_M:.4f} m))"
+        f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the standalone loop failed its gates: {structure[:5]}")
+    med = statistics.median(walls)
+    log(f"[times] standalone loop, {smi}: {loop_s:.1f} s for {LOOP_FRAMES} frames and the final "
+        f"GBA; per-frame wall (each ending in a sync) median {med:.3f} ms, min {min(walls):.3f}, "
+        f"max {max(walls):.3f}, {sum(w <= CAMERA_PERIOD_MS for w in walls)}/{len(walls)} within "
+        f"the {CAMERA_PERIOD_MS:g} ms camera period; host reads: tracker {s['host_reads']}, loop "
+        f"closer {f['host_reads']}; local BAs {s['local_ba_calls']}, brute matches "
+        f"{s['brute_matches']}")
+    for name, ws in stages.ms.items():
+        log(f"  {name}, {smi}: {len(ws)} call(s), median {statistics.median(ws):.3f} ms, "
+            f"min {min(ws):.3f}, max {max(ws):.3f}, total {sum(ws):.1f}")
+    for k, (iters, wall, busy, cg, n_k) in enumerate(gbas):
+        log(f"  GBA {k + 1} ({iters} iterations, {smi}): wall {wall:.3f} ms (profiler on), device "
+            f"busy {busy:.3f} ms ({busy / wall:.1%}), {cg} CG steps, {n_k} device kernels")
+    if closing:
+        lf = LoopFinder(cfg=cfg, cam=sys_.cam, vocab=sys_.vocab, db=closing["db"], map_id=0,
+                        last_loop_kf_id=closing["last"], prev_groups=closing["prev"],
+                        rng=torch.Generator(device=dev))
+        lf.rng.set_state(closing["rng"])
+        (_, closed), device, wall = profiled(lambda: lf.try_close(closing["m"],
+                                                                   closing["kf_idx"]))
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        log(f"  closing try_close replayed under the profiler ({smi}): closed again {closed}, "
+            f"wall {wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+            f"{sum(e.count for e in device)} device kernels, the port's CUDA kernels "
+            f"{port_kernels_ms(device):.3f} ms")
+        if not closed:
+            raise AssertionError("the closing try_close did not close again on its replay")
+        for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.key[:70]:<70} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1176,6 +1397,13 @@ def main() -> int:
         "rendered_ci_config(1.0)")
     check_client_loop(dev, smi)
     phase_done(11)
+
+    # -- phase 12: the single-agent loop at full width ---------------------------
+    log("[loop] StandaloneSystem.process_image over the rendered loop circuit at 752x480, "
+        "rendered_ci_config(1.0), 1,024 words, then run_gba(40)")
+    loop_counts = check_standalone_loop(dev, smi)
+    log(f"  phase-12 launches: {json.dumps(loop_counts)}")
+    phase_done(12)
 
     # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
     # its windows miscounted, the CUDA-event time

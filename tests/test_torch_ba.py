@@ -184,24 +184,55 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
     assert device.resolve_device("cpu") == torch.device("cpu")
 
 
+FORBIDDEN = ("jax", "flax", "ccm_slam_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
 def test_port_imports_no_jax():
+    """Every module of the port (walked with pkgutil, so new modules are
+    covered without a list) imports without JAX, flax or the JAX package."""
     code = (
-        "import sys\n"
-        "import ccm_slam_tpu_torch, ccm_slam_tpu_torch.convert, ccm_slam_tpu_torch.problems\n"
-        "import ccm_slam_tpu_torch.solvers.ba, ccm_slam_tpu_torch.solvers.pose_opt\n"
-        "import ccm_slam_tpu_torch.utils.lie, ccm_slam_tpu_torch.ops.ba_kernels\n"
-        "import ccm_slam_tpu_torch.config, ccm_slam_tpu_torch.utils.camera\n"
-        "import ccm_slam_tpu_torch.ops.hamming, ccm_slam_tpu_torch.ops.hamming_kernels\n"
-        "import ccm_slam_tpu_torch.ops.fast, ccm_slam_tpu_torch.ops.brief\n"
-        "import ccm_slam_tpu_torch.ops.orb, ccm_slam_tpu_torch.ops.matching\n"
-        "import ccm_slam_tpu_torch.ops.initializer, ccm_slam_tpu_torch.ops.pnp\n"
-        "import ccm_slam_tpu_torch.runtime.frame, ccm_slam_tpu_torch.io.euroc\n"
-        "import ccm_slam_tpu_torch.io.rendered\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'ccm_slam_tpu' or m.startswith('ccm_slam_tpu.')]\n"
+        "import importlib, pkgutil, sys\n"
+        "import ccm_slam_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ccm_slam_tpu_torch.__path__,\n"
+        "                                               'ccm_slam_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert len(names) >= 40, names\n"
+        "bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.')\n"
+        f"                                   for f in {FORBIDDEN!r})]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def _imported_modules(path: Path) -> set:
+    """Top-level module names a file imports (absolute imports, any depth)."""
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py and the repo's tools it imports name no JAX, flax or
+    JAX-package module in any import statement."""
+    files = [REPO / "chip_smoke.py"]
+    files += [REPO / (n.replace(".", "/") + ".py") for n in sorted(_imported_modules(files[0]))
+              if n.startswith("tools.") and (REPO / (n.replace(".", "/") + ".py")).exists()]
+    for path in files:
+        bad = sorted(n for n in _imported_modules(path) if _forbidden(n))
+        assert not bad, (path.name, bad)
+    assert {p.name for p in files} >= {"chip_smoke.py", "kernel_timing.py", "mma_b1_rate.py"}

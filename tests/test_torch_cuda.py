@@ -497,3 +497,62 @@ def test_orb_extract_on_card_matches_cpu():
     shared = same & ref.valid
     d = hamming.hamming_pairwise(ours.desc.cpu(), ref.desc)[shared]
     assert float((d == 0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("solver,V", [("dense", 48), ("pcg", 48), ("auto", 400)])
+def test_pose_graph_on_card_matches_cpu_and_reruns_bit_identical(solver, V):
+    """The essential graph's solve on the card: the same bits on a rerun
+    (fixed-order segment sums, no float atomics) and the CPU's optimum: cost
+    within 1e-4 relative; vertices within 1e-4 after dense LU steps, and
+    within 5e-2 after truncated CG steps, whose rounding moves the solution
+    along the chain's flat scale valley (on the CPU, dense and PCG land
+    4.4 mm apart at V=48 with costs equal to 1e-6).  V=400 takes the PCG
+    branch under "auto"."""
+    from ccm_slam_tpu_torch.solvers import pose_graph as pg
+
+    dev = card()
+    f = problems.pose_graph_arrays(V=V, seed=1)
+    S_c, cost_c = pg.optimize_pose_graph(convert.pose_graph_problem_from_numpy(f, "cpu"),
+                                         iters=10, solver=solver)
+    prob = convert.pose_graph_problem_from_numpy(f, dev)
+    S_g, cost_g = pg.optimize_pose_graph(prob, iters=10, solver=solver)
+    S_g2, cost_g2 = pg.optimize_pose_graph(prob, iters=10, solver=solver)
+    assert torch.equal(cost_g, cost_g2)
+    assert abs(float(cost_g) - float(cost_c)) <= 1e-4 * float(cost_c) + 1e-6
+    for name in ("s", "R", "t"):
+        assert torch.equal(getattr(S_g, name), getattr(S_g2, name)), name
+        tol = 1e-4 if solver == "dense" else 5e-2
+        torch.testing.assert_close(getattr(S_g, name).cpu(), getattr(S_c, name), rtol=1e-4,
+                                   atol=tol)
+
+
+def test_estimate_sim3_on_card_matches_cpu():
+    """estimate_sim3 between two keyframes of a client map, the card (its
+    match_brute on the hamming_top2 kernel) against the CPU, on the same
+    RANSAC samples: equal matches and inliers, S_qc within 1e-4."""
+    from ccm_slam_tpu_torch.config import tiny_test_config
+    from ccm_slam_tpu_torch.ops import initializer
+    from ccm_slam_tpu_torch.runtime import loop_closing
+    from ccm_slam_tpu_torch.utils.camera import Camera
+
+    dev = card()
+    fields, _, _ = problems.client_map_arrays(n_kf=6, seed=3)
+    cfg = tiny_test_config()
+
+    def draw(okm):
+        gen = torch.Generator().manual_seed(0)
+        return initializer.draw_samples(okm.cpu(), 300, 3, generator=gen).to(okm.device)
+
+    out = {}
+    for d in ("cpu", dev):
+        m = convert.map_state_from_numpy(fields, d)
+        out[str(d)] = loop_closing.estimate_sim3(m, 5, 0, Camera.from_config(cfg.camera, d), cfg,
+                                                 idx=draw)
+    c, g = out["cpu"], out[str(dev)]
+    assert int(g["n_matches"]) == int(c["n_matches"]) >= 20
+    assert int(g["n_inliers"]) == int(c["n_inliers"]) >= 20
+    assert bool(g["success"]) == bool(c["success"])
+    torch.testing.assert_close(g["matched_mp"].cpu(), c["matched_mp"])
+    for name in ("s", "R", "t"):
+        torch.testing.assert_close(getattr(g["S_qc"], name).cpu(), getattr(c["S_qc"], name),
+                                   rtol=1e-4, atol=1e-4)
