@@ -21,12 +21,17 @@ bilinearly samples per-plane procedural textures.  Two backends:
   sensor noise is drawn from the same numpy stream, so frames differ from
   the numpy path only by float rounding of the ray geometry.
 
-The reference's on-disk frame cache is not ported.
+``cache_dir`` keeps each rendered frame on disk as a uint8 ``.npy`` under
+the reference's key and file layout (``_cache_path``), so both packages can
+share one cache directory and reruns skip the rendering.  As in the
+reference, a frame read back from the cache is the uint8 image as float32;
+the render that filled it returned the unquantized frame.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
@@ -38,6 +43,11 @@ from ..device import resolve_device
 from .euroc import EurocFrame
 
 # --------------------------------------------------------------- textures ----
+
+# the reference's texture generation version, part of the frame cache's key
+# (bump when the procedural textures change: the key cannot hash them)
+TEXTURE_VERSION = 2
+
 
 def _box_blur(img: np.ndarray, k: int) -> np.ndarray:
     """Separable box blur via cumulative sums (no scipy)."""
@@ -440,6 +450,7 @@ class RenderedSequence:
     supersample: int = 2      # rendering anti-aliasing factor
     backend: str = "numpy"    # numpy | torch (raycast on ``device``)
     device: Optional[object] = None  # torch backend: the card unless told otherwise
+    cache_dir: Optional[str] = None  # per-frame u8 cache (reruns are free)
     _cache: dict = field(default_factory=dict, repr=False)
 
     def _setup(self):
@@ -459,12 +470,31 @@ class RenderedSequence:
             self._cache["rays"] = pixel_rays(self.cam, ss=self.supersample)
         return self._cache["planes"], self._cache["traj"], self._cache["rays"]
 
+    def _cache_path(self, i: int) -> Optional[str]:
+        """The reference's cache file of frame i (same key, same layout)."""
+        if self.cache_dir is None:
+            return None
+        key = (f"{self.world}-s{self.seed}-n{self.n_frames}"
+               f"-sp{self.span[0]:g}-{self.span[1]:g}-ss{self.supersample}"
+               f"-ns{self.noise_std:g}-w{self.cam.width}x{self.cam.height}-tv{TEXTURE_VERSION}")
+        d = os.path.join(self.cache_dir, key)
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"{i:05d}.npy")
+
     def _frame_rng(self, i: int) -> np.random.RandomState:
         return np.random.RandomState((self.seed + 991) * 1000003 + i)
 
     def render_frame(self, i: int):
         """[H,W] float32 frame i: a numpy array, or a tensor on the device
-        for the torch backend."""
+        for the torch backend (read from ``cache_dir`` when it holds it)."""
+        if self.backend not in ("numpy", "torch"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        path = self._cache_path(i)
+        if path is not None and os.path.exists(path):
+            img = np.load(path).astype(np.float32)
+            if self.backend == "torch":
+                return torch.as_tensor(img, device=resolve_device(self.device))
+            return img
         planes, traj, rays = self._setup()
         t, o, R_wc = traj[i]
         rng = self._frame_rng(i)
@@ -473,11 +503,15 @@ class RenderedSequence:
                 self._cache["raycast"] = make_raycaster_torch(planes, rays, self.supersample,
                                                               self.device)
             core = self._cache["raycast"](R_wc, o)
-            return _sensor_model_torch(core, t, rng, self.noise_std, exposure=True)
-        if self.backend != "numpy":
-            raise ValueError(f"unknown backend {self.backend!r}")
-        return render(planes, rays, R_wc, o, rng, t=t, noise_std=self.noise_std,
-                      ss=self.supersample)
+            img = _sensor_model_torch(core, t, rng, self.noise_std, exposure=True)
+            if path is not None:
+                np.save(path, img.cpu().numpy().astype(np.uint8))
+            return img
+        img = render(planes, rays, R_wc, o, rng, t=t, noise_std=self.noise_std,
+                     ss=self.supersample)
+        if path is not None:
+            np.save(path, img.astype(np.uint8))
+        return img
 
     def frames(self, start: float = 0.0, limit: Optional[int] = None) -> Iterator[EurocFrame]:
         _, traj, _ = self._setup()

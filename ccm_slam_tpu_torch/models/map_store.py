@@ -1,7 +1,8 @@
 """Fixed-capacity SoA map arenas: keyframes, landmarks, observations (PyTorch).
 
-Counterpart of ``ccm_slam_tpu/models/map_store.py``, the part the client
-and the single-agent loop closer run:
+Counterpart of ``ccm_slam_tpu/models/map_store.py`` (the client, the loop
+closer and the multi-agent server: batched keyframe landing, append-only
+growth, the vicinity selection, gauge changes and map merging):
 
 * entities live in struct-of-arrays arenas with validity masks: the arena
   index is the handle, ``(kf_id, client_id)`` keeps the reference's identity;
@@ -13,10 +14,14 @@ and the single-agent loop closer run:
 * covisibility is derived from the observation tables, not maintained.
 
 Scatter discipline (the reference's invariants): a masked scatter is an
-add of a delta that is 0 on masked lanes (``index_put(..., accumulate=True)``)
-so collided no-op writes stay no-ops; bool flags are set by monotone max/min
-scatters (``scatter_reduce`` "amax"/"amin"), never by ``index_put`` with
-colliding indices.  Forward and reverse links are kept consistent.
+add of a delta (``_add_at``: ``index_put(..., accumulate=True)``) where the
+reference adds 0 on masked lanes, so collided no-op writes stay no-ops; a
+set (``_set_at``) only where the live lanes are distinct; bool flags are
+set by monotone max/min scatters (``scatter_reduce`` "amax"/"amin"), never
+by ``index_put`` with colliding indices.  The masked lanes write distinct
+spare rows that are dropped afterwards: PyTorch's accumulating
+``index_put`` on the card serializes colliding lanes.  Forward and reverse
+links are kept consistent.
 """
 
 from __future__ import annotations
@@ -130,14 +135,65 @@ def _i32(x, device):
     return torch.as_tensor(x, device=device).to(torch.int32)
 
 
-def _add_at(x, index, delta):
-    """x.at[index].add(delta): accumulate, out of place (uint8 through int32:
-    the wrapped uint8 delta of the reference lands on the same value)."""
-    idx = tuple(i.long() for i in index)
+def _flat_rows(x, index):
+    """x viewed as [prod(indexed dims), rest...] and the lanes' row index."""
+    d = len(index)
+    lin = index[0].long()
+    for i, n in zip(index[1:], x.shape[1:d]):
+        lin = lin * n + i.long()
+    return x.reshape((-1,) + tuple(x.shape[d:])), lin.reshape(-1)
+
+
+def _spare_rows(x, index, live):
+    """x flattened as ``_flat_rows`` gives it, with one spare row per lane
+    appended; each lane's target (its row where ``live``, else its own
+    spare row, dropped by the caller); and a function that lays a value
+    broadcastable to ``x[index]`` out as one row per lane."""
+    xf, lin = _flat_rows(x, index)
+    L = lin.shape[0]
+    lanes = torch.broadcast_shapes(*(i.shape for i in index))
+    spare = torch.zeros((L,) + tuple(xf.shape[1:]), dtype=xf.dtype, device=xf.device)
+    lane = torch.arange(L, device=lin.device)
+    tgt = torch.where(torch.broadcast_to(live, lanes).reshape(-1), lin, xf.shape[0] + lane)
+
+    def per_lane(v):
+        return torch.broadcast_to(v, lanes + xf.shape[1:]).reshape((L,) + tuple(xf.shape[1:]))
+    return torch.cat([xf, spare]), tgt, per_lane
+
+
+def _add_at(x, index, delta, live):
+    """``x.at[index].add(delta)`` out of place, where only the ``live`` lanes
+    write (the reference adds a delta of 0 on the others: the same values).
+    Every other lane lands on a spare row of its own, dropped afterwards, so
+    only lanes that really collide accumulate together: PyTorch's
+    accumulating ``index_put`` on the card serializes colliding lanes.
+    uint8 goes through int32 (the wrapped uint8 delta of the reference lands
+    on the same value)."""
+    xs, tgt, per_lane = _spare_rows(x, index, live)
     if x.dtype == torch.uint8:
-        out = x.to(torch.int32).index_put(idx, delta.to(torch.int32), accumulate=True)
-        return out.to(torch.uint8)
-    return x.index_put(idx, delta.to(x.dtype), accumulate=True)
+        xs = xs.to(torch.int32)
+    xs.index_put_((tgt,), per_lane(delta).to(xs.dtype), accumulate=True)
+    return xs[:-tgt.shape[0]].reshape(x.shape).to(x.dtype)
+
+
+def _set_at(x, index, val, live):
+    """``x.at[index].set(val)`` on the ``live`` lanes, which must be
+    distinct; the others write their own spare rows (a plain ``index_put``
+    with no colliding lanes)."""
+    xs, tgt, per_lane = _spare_rows(x, index, live)
+    xs.index_put_((tgt,), per_lane(val).to(x.dtype))
+    return xs[:-tgt.shape[0]].reshape(x.shape)
+
+
+def _write_rows(field, idx, sel, val):
+    """Rows ``idx`` of ``field`` set to ``val`` where ``sel``, as the
+    reference writes them: an add of the delta (0 on unselected lanes)."""
+    val = torch.as_tensor(val, device=field.device)
+    cur = field[idx]
+    if field.dtype == torch.uint8:  # uint8 deltas wrap; take them in int32
+        val, cur = val.to(torch.int32), cur.to(torch.int32)
+    delta = torch.where(_expand(sel, cur), val.to(cur.dtype) - cur, torch.zeros_like(cur))
+    return _add_at(field, (idx,), delta, sel)
 
 
 def _bool_at(x, index, src, reduce):
@@ -212,6 +268,30 @@ def empty_map(capacity_kfs: int, capacity_mps: int, n_feat: int, max_obs: int,
 # ---------------------------------------------------------------------------
 
 
+def grow_map(m: MapState, new_kf_cap: int = None, new_mp_cap: int = None) -> MapState:
+    """Enlarge the arenas, keeping content AND arena indices (append-only:
+    every table of arena indices stays valid).  New rows get ``empty_map``'s
+    defaults."""
+    K0, M0 = m.kfs.capacity, m.mps.capacity
+    K1 = max(int(new_kf_cap or K0), K0)
+    M1 = max(int(new_mp_cap or M0), M0)
+    if K1 == K0 and M1 == M0:
+        return m
+    tmpl = empty_map(K1, M1, m.kfs.n_feat, m.mps.max_obs, m.device)
+
+    def splice(store, new):
+        out = {}
+        for f in dataclasses.fields(store):
+            old, big = getattr(store, f.name), getattr(new, f.name)
+            big = big.clone()
+            big[:old.shape[0]] = old
+            out[f.name] = big
+        return type(store)(**out)
+
+    return MapState(kfs=splice(m.kfs, tmpl.kfs), mps=splice(m.mps, tmpl.mps),
+                    next_kf=m.next_kf, next_mp=m.next_mp, insert_counter=m.insert_counter)
+
+
 def add_keyframe(m: MapState, kf_id, client_id, timestamp, R_cw, t_cw, xy, desc, octave,
                  angle, feat_valid, mp_assoc):
     """Allocate the next KF slot.  mp_assoc [N]: landmark arena idx or NO_MP.
@@ -239,6 +319,71 @@ def add_keyframe(m: MapState, kf_id, client_id, timestamp, R_cw, t_cw, xy, desc,
     return m, k
 
 
+def add_keyframes(m: MapState, kf_ids, client_ids, timestamps, R_cw, t_cw, xy, desc, octave,
+                  angle, feat_valid, mp_assoc, new_valid):
+    """Batch-allocate keyframe slots (the [B]-row analogue of add_keyframe).
+
+    Masked rows write the last slot as exact no-ops (the arena scatter
+    discipline).  Reverse observations are registered for all rows at once:
+    per-landmark ranks put concurrent observations of one landmark from
+    several new keyframes into distinct slots.  Returns (map, arena_idx [B],
+    -1 for masked rows)."""
+    B = kf_ids.shape[0]
+    K = m.kfs.capacity
+    dev = kf_ids.device
+    sel = new_valid
+    offs = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
+    idx = torch.where(sel, m.next_kf + offs, K - 1).clamp(0, K - 1).long()
+    kfs = m.kfs
+
+    def upd(field, val):
+        return _write_rows(field, idx, sel, val)
+
+    fv_rows = torch.where(_expand(sel, feat_valid), feat_valid, False).to(torch.int32)
+    kfs = kfs.replace(
+        kf_id=upd(kfs.kf_id, kf_ids),
+        client_id=upd(kfs.client_id, client_ids),
+        timestamp=upd(kfs.timestamp, timestamps),
+        valid=_bool_at(kfs.valid, idx, sel, "amax"),
+        bad=_bool_at(kfs.bad, idx, ~sel, "amin"),
+        insert_order=upd(kfs.insert_order, m.insert_counter + offs),
+        R_cw=upd(kfs.R_cw, R_cw),
+        t_cw=upd(kfs.t_cw, t_cw),
+        xy=upd(kfs.xy, xy),
+        desc=upd(kfs.desc, desc),
+        octave=upd(kfs.octave, octave),
+        angle=upd(kfs.angle, angle),
+        feat_valid=kfs.feat_valid.to(torch.int32).scatter_reduce(
+            0, idx[:, None].expand_as(fv_rows), fv_rows, "amax").bool(),
+        mp_idx=upd(kfs.mp_idx, mp_assoc),
+    )
+    n_new = torch.sum(sel.to(torch.int32), dtype=torch.int32)
+    m = m.replace(kfs=kfs, next_kf=(m.next_kf + n_new).to(torch.int32),
+                  insert_counter=(m.insert_counter + n_new).to(torch.int32))
+
+    # reverse observations over the flattened [B*N] hits, ranked per landmark
+    mps = m.mps
+    N = mp_assoc.shape[1]
+    flat_mp = torch.where(sel[:, None], mp_assoc, NO_MP).reshape(-1)
+    has = flat_mp >= 0
+    target = torch.where(has, flat_mp, 0).long()
+    skey = torch.where(has, target, 2**30)
+    order = torch.argsort(skey, stable=True)
+    sorted_t = skey[order]
+    first = torch.searchsorted(sorted_t, sorted_t, side="left")
+    rank = torch.empty_like(order).index_put((order,), torch.arange(B * N, device=dev) - first)
+    slot = (mps.obs_n[target] + rank).clamp(0, mps.max_obs - 1)
+    kf_of = idx[:, None].expand(B, N).reshape(-1)
+    feat_of = torch.arange(N, device=dev)[None, :].expand(B, N).reshape(-1)
+    obs_kf = _add_at(mps.obs_kf, (target, slot), kf_of - mps.obs_kf[target, slot], has)
+    obs_feat = _add_at(mps.obs_feat, (target, slot),
+                            feat_of - mps.obs_feat[target, slot], has)
+    obs_n = _add_at(mps.obs_n, (target,), torch.ones_like(target), has)
+    obs_n = torch.clamp(obs_n, max=mps.max_obs)
+    m = m.replace(mps=mps.replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_n=obs_n))
+    return m, torch.where(sel, idx, -1).to(torch.int32)
+
+
 def register_observations(m: MapState, kf_idx, mp_assoc) -> MapState:
     """Append (kf_idx, feat) to each associated landmark's reverse-obs table
     (idempotence is not checked, as in the reference)."""
@@ -251,10 +396,10 @@ def register_observations(m: MapState, kf_idx, mp_assoc) -> MapState:
     old_kf = mps.obs_kf[target, slot]
     old_feat = mps.obs_feat[target, slot]
     kf_idx = _i32(kf_idx, dev)
-    obs_kf = _add_at(mps.obs_kf, (target, slot), torch.where(has, kf_idx - old_kf, 0))
+    obs_kf = _add_at(mps.obs_kf, (target, slot), torch.where(has, kf_idx - old_kf, 0), has)
     feats = torch.arange(N, dtype=torch.int32, device=dev)
-    obs_feat = _add_at(mps.obs_feat, (target, slot), torch.where(has, feats - old_feat, 0))
-    obs_n = _add_at(mps.obs_n, (target,), has.to(torch.int32))
+    obs_feat = _add_at(mps.obs_feat, (target, slot), torch.where(has, feats - old_feat, 0), has)
+    obs_n = _add_at(mps.obs_n, (target,), has.to(torch.int32), has)
     obs_n = torch.clamp(obs_n, max=mps.max_obs)
     return m.replace(mps=mps.replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_n=obs_n))
 
@@ -271,12 +416,7 @@ def add_mappoints(m: MapState, n_new, pos, desc, normal, min_dist, max_dist, ref
     sel = new_valid
 
     def upd(field, val):
-        val = torch.as_tensor(val, device=dev)
-        cur = field[idx]
-        if field.dtype == torch.uint8:  # uint8 deltas wrap; take them in int32
-            val, cur = val.to(torch.int32), cur.to(torch.int32)
-        delta = torch.where(_expand(sel, cur), val.to(cur.dtype) - cur, torch.zeros_like(cur))
-        return _add_at(field, (idx,), delta)
+        return _write_rows(field, idx, sel, val)
 
     stamp = ref_kf if inserted_stamp is None else torch.broadcast_to(
         _i32(inserted_stamp, dev), ref_kf.shape)
@@ -373,12 +513,46 @@ def add_loop_edge(kfs: KeyFrameStore, a, b):
         slot = torch.argmax(free.to(torch.uint8))  # the first free slot
         can = has_free & ~dup
         tbl = _add_at(tbl, (i.reshape(1), slot.reshape(1)),
-                      torch.where(can, v - row[slot], 0).reshape(1))
+                      torch.where(can, v - row[slot], 0).reshape(1), can.reshape(1))
         return tbl, (~dup & ~has_free).to(torch.int32)
 
     tbl, d1 = app(kfs.loop_edges, a, b)
     tbl, d2 = app(tbl, b, a)
     return kfs.replace(loop_edges=tbl), d1 + d2
+
+
+def vicinity_khop(m: MapState, root, max_kfs: int, hops: int = 4):
+    """k-hop covisibility expansion from ``root`` (the selection step of
+    Map::PackVicinityToMsg, cslam/src/Map.cpp:1065-1155): per hop, forward
+    links -> landmark set, reverse observations -> neighbour set.  Returns
+    (sel [max_kfs] arena indices, sel_valid [max_kfs]) ordered by hop,
+    then root covisibility (descending), then newest first."""
+    kfs, mps = m.kfs, m.mps
+    K, M, O = kfs.capacity, mps.capacity, mps.max_obs
+    dev = kfs.mp_idx.device
+    r = torch.as_tensor(root, device=dev).long()
+    alive = kfs.valid & ~kfs.bad
+    ar = torch.arange(K, device=dev)
+    hop = torch.where(ar == r, 0, K + 1)
+    mp = kfs.mp_idx.clamp(0, M - 1).long().reshape(-1)
+    mp_has = (kfs.mp_idx >= 0) & kfs.feat_valid & alive[:, None]
+    lm_alive = mps.valid & ~mps.bad
+    okf = mps.obs_kf.clamp(0, K - 1).long().reshape(-1)
+    obs_ok = (torch.arange(O, device=dev)[None, :] < mps.obs_n[:, None]) & (mps.obs_kf >= 0)
+    for h in range(hops):
+        frontier = hop == h
+        lm = _bool_at(torch.zeros(M, dtype=torch.bool, device=dev), mp,
+                      (mp_has & frontier[:, None]).reshape(-1), "amax") & lm_alive
+        nb = _bool_at(torch.zeros(K, dtype=torch.bool, device=dev), okf,
+                      (obs_ok & lm[:, None]).reshape(-1), "amax")
+        hop = torch.where(nb & alive & (hop > h + 1), h + 1, hop)
+    w_root = covis_row(m, r)
+    # lexicographic order by successive stable sorts, least significant first
+    o = torch.argsort(-kfs.insert_order, stable=True)
+    o = o[torch.argsort(-w_root[o], stable=True)]
+    o = o[torch.argsort(hop[o], stable=True)]
+    sel = o[:max_kfs]
+    return sel.to(torch.int32), hop[sel] <= hops
 
 
 def covis_neighbors(W, kf_idx, top_k: int, min_weight: int = 15):
@@ -546,21 +720,20 @@ def rebuild_observations(m: MapState) -> MapState:
     src_kf = (order // N).to(torch.int32)
     src_feat = (order % N).to(torch.int32)
 
+    # every written (landmark, slot) and every dropped (kf, feat) is distinct;
+    # the other lanes write spare rows (no colliding index_put)
     write = (sorted_mp < M) & (rank < O)
     tgt_mp = torch.where(write, sorted_mp, 0)
     tgt_slot = torch.where(write, rank, 0)
-    obs_kf = _add_at(torch.full((M, O), NO_KF, dtype=torch.int32, device=dev),
-                     (tgt_mp, tgt_slot), torch.where(write, src_kf - NO_KF, 0))
-    obs_feat = _add_at(torch.zeros(M, O, dtype=torch.int32, device=dev),
-                       (tgt_mp, tgt_slot), torch.where(write, src_feat, 0))
-    obs_n = _add_at(torch.zeros(M, dtype=torch.int32, device=dev), (tgt_mp,),
-                    write.to(torch.int32))
+    obs_kf = _set_at(torch.full((M, O), NO_KF, dtype=torch.int32, device=dev),
+                          (tgt_mp, tgt_slot), src_kf, write)
+    obs_feat = _set_at(torch.zeros(M, O, dtype=torch.int32, device=dev),
+                            (tgt_mp, tgt_slot), src_feat, write)
+    obs_n = torch.clamp(first_of[1:] - first_of[:-1], max=O).to(torch.int32)
 
     overflow = live[order] & (sorted_mp < M) & (rank >= O)
-    dk = torch.where(overflow, src_kf, 0).long()
-    df = torch.where(overflow, src_feat, 0).long()
-    cur = kfs.mp_idx[dk, df]
-    mp_idx2 = _add_at(kfs.mp_idx, (dk, df), torch.where(overflow, NO_MP - cur, 0))
+    mp_idx2 = _set_at(kfs.mp_idx, (src_kf, src_feat),
+                           torch.full_like(src_kf, NO_MP), overflow)
     return m.replace(kfs=kfs.replace(mp_idx=mp_idx2),
                      mps=mps.replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_n=obs_n))
 
@@ -666,6 +839,67 @@ def compact_map(m: MapState) -> MapState:
     no_ref = (mps3.ref_kf < 0) & mps3.valid
     return m2.replace(mps=mps3.replace(ref_kf=torch.where(no_ref, mps3.obs_kf[:, 0],
                                                           mps3.ref_kf)))
+
+
+def transform_map(m: MapState, s, R, t) -> MapState:
+    """Apply a Sim3 gauge change S = (s, R, t): world' = S(world).  Poses
+    become se3(T_cw o S^-1): rotation R_cw R^T, translation
+    s (t_cw - R_cw R^T t / s); positions s R X + t (MapMerger.cpp:349-395)."""
+    kfs, mps = m.kfs, m.mps
+    dev = kfs.R_cw.device
+    s = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    R = torch.as_tensor(R, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    Rt = R.T
+    new_R = kfs.R_cw @ Rt
+    trans_sim = (kfs.R_cw @ (-(Rt @ t) / s)) + kfs.t_cw
+    return m.replace(
+        kfs=kfs.replace(R_cw=new_R, t_cw=trans_sim * s, pose_version=kfs.pose_version + 1),
+        mps=mps.replace(pos=s * (mps.pos @ R.T) + t, pos_version=mps.pos_version + 1),
+    )
+
+
+def merge_maps(m_into: MapState, m_from: MapState, s, R, t) -> MapState:
+    """Union map (the Map merge constructor, cslam/src/Map.cpp:70-172):
+    ``m_from`` compacted, moved by the Sim3 (s, R, t) into ``m_into``'s
+    world and appended at ``m_into``'s cursors; ``m_from``'s arena index i
+    becomes ``m_into.next_kf + i`` (landmarks likewise).  The result keeps
+    ``m_into``'s capacity.  ``m_from``'s whole arena is written from the
+    cursor on, clipped at the last slot as the reference's scatter does:
+    when it runs past the end, the last slot keeps ``m_into``'s row (the
+    reference's last write wins)."""
+    a = m_into
+    b = transform_map(compact_map(m_from), s, R, t)
+    nk, nm = a.next_kf, a.next_mp
+    dev = a.device
+
+    def off(x, n):
+        return torch.where(x >= 0, x + n, x)
+
+    bk = b.kfs.replace(
+        mp_idx=off(b.kfs.mp_idx, nm), parent=off(b.kfs.parent, nk),
+        loop_edges=off(b.kfs.loop_edges, nk),
+        insert_order=torch.where(b.kfs.valid, b.kfs.insert_order + a.insert_counter,
+                                 b.kfs.insert_order),
+    )
+    bm = b.mps.replace(obs_kf=off(b.mps.obs_kf, nk), ref_kf=off(b.mps.ref_kf, nk))
+
+    def splice(dst_store, src_store, cursor, n_src, cap):
+        idx = cursor + torch.arange(n_src, device=dev)
+        write = (idx < cap - 1) | ((idx == cap - 1) & (cursor + n_src <= cap))
+        tgt = idx.clamp(0, cap - 1)
+        return type(dst_store)(**{
+            f.name: _set_at(getattr(dst_store, f.name), (tgt,), getattr(src_store, f.name),
+                                 write)
+            for f in dataclasses.fields(dst_store)})
+
+    return a.replace(
+        kfs=splice(a.kfs, bk, nk, b.kfs.capacity, a.kfs.capacity),
+        mps=splice(a.mps, bm, nm, b.mps.capacity, a.mps.capacity),
+        next_kf=(nk + b.next_kf).to(torch.int32),
+        next_mp=(nm + b.next_mp).to(torch.int32),
+        insert_counter=(a.insert_counter + b.insert_counter).to(torch.int32),
+    )
 
 
 def compaction_remap(m: MapState):

@@ -12,12 +12,18 @@ tie rule is ``jnp.argmin``'s; no [N, W] distance or one-hot matrix is built.
 Word counts and per-bit sums are integer sums (exact in any order), and
 training draws its initial centroids ``perm`` from ``generator`` when none
 are given (``torch.multinomial`` over the valid descriptors, where the
-reference calls ``jax.random.choice``).
+reference calls ``jax.random.choice``).  ``train_vocabulary_large`` is the
+trainer at ORBvoc scale (tens of thousands of words), in descriptor blocks.
+
+``VOCAB32K`` is the port's own copy of the reference's 32,768-word
+codebook (``data/vocab32k.npz``, byte for byte); ``load_vocabulary()``
+reads it when no path is given.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from . import hamming
 from .hamming_kernels import hamming_top2
 
 _CHUNK = 16384  # descriptors per bit-sum pass in training
+VOCAB32K = str(Path(__file__).resolve().parents[1] / "data" / "vocab32k.npz")
 
 
 @dataclass(frozen=True)
@@ -53,6 +60,31 @@ def _idf(counts):
     return torch.where(counts > 0, idf, 0.0)
 
 
+def _majority_centroid(bits, weights):
+    """Binary centroid by weighted per-bit majority vote: bits [N,256] {0,1},
+    weights [N] -> [256] uint8 {0,1}."""
+    w = weights / torch.clamp(torch.sum(weights), min=1e-9)
+    return (torch.sum(bits * w[:, None], dim=0) >= 0.5).to(torch.uint8)
+
+
+def _em_update(words, descs, valid, assign, n_words):
+    """One majority-vote update from an assignment: (words', counts f32)."""
+    dev = descs.device
+    N = descs.shape[0]
+    cnt = torch.zeros(n_words, dtype=torch.int32, device=dev).index_add_(
+        0, assign, valid.to(torch.int32))
+    sums = torch.zeros(n_words, 256, dtype=torch.int32, device=dev)
+    for n0 in range(0, N, _CHUNK):
+        bits = hamming.unpack_bits(descs[n0:n0 + _CHUNK]).to(torch.int32)
+        bits = bits * valid[n0:n0 + _CHUNK, None].to(torch.int32)
+        sums.index_add_(0, assign[n0:n0 + _CHUNK], bits)
+    counts = cnt.to(torch.float32)
+    mean = sums.to(torch.float32) / torch.clamp(counts[:, None], min=1e-9)
+    new_words = hamming.pack_bits((mean >= 0.5).to(torch.uint8))
+    # dead clusters keep their previous centroid
+    return torch.where(counts[:, None] > 0, new_words, words), counts
+
+
 def train_vocabulary(descs, valid, n_words: int = 1024, iters: int = 8, perm=None,
                      generator=None) -> Vocabulary:
     """Binary k-medians over a descriptor sample: descs [N,32] uint8, valid
@@ -68,19 +100,30 @@ def train_vocabulary(descs, valid, n_words: int = 1024, iters: int = 8, perm=Non
     words = descs[perm.long()]
     counts = torch.zeros(n_words, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        assign = nearest_word(words, descs, valid)
-        cnt = torch.zeros(n_words, dtype=torch.int32, device=dev).index_add_(
-            0, assign, valid.to(torch.int32))
-        sums = torch.zeros(n_words, 256, dtype=torch.int32, device=dev)
-        for n0 in range(0, N, _CHUNK):
-            bits = hamming.unpack_bits(descs[n0:n0 + _CHUNK]).to(torch.int32)
-            bits = bits * valid[n0:n0 + _CHUNK, None].to(torch.int32)
-            sums.index_add_(0, assign[n0:n0 + _CHUNK], bits)
-        counts = cnt.to(torch.float32)
-        mean = sums.to(torch.float32) / torch.clamp(counts[:, None], min=1e-9)
-        new_words = hamming.pack_bits((mean >= 0.5).to(torch.uint8))
-        # dead clusters keep their previous centroid
-        words = torch.where(counts[:, None] > 0, new_words, words)
+        words, counts = _em_update(words, descs, valid, nearest_word(words, descs, valid),
+                                   n_words)
+    return Vocabulary(words=words, idf=_idf(counts))
+
+
+def train_vocabulary_large(descs, n_words: int = 32768, iters: int = 6, block: int = 8192,
+                           perm=None, generator=None) -> Vocabulary:
+    """Binary k-medians at ORBvoc scale over ALL of ``descs`` [N,32] (a
+    pre-filtered sample): each iteration assigns ``block`` descriptors per
+    nearest-word call, so no [N, W] matrix is formed.  ``perm`` [n_words]
+    seeds the centroids (else drawn uniformly from ``generator``, with
+    replacement only when N < n_words, as ``jax.random.choice``)."""
+    N = descs.shape[0]
+    dev = descs.device
+    if perm is None:
+        p = torch.ones(N, dtype=torch.float32, device=dev)
+        perm = torch.multinomial(p, n_words, replacement=N < n_words, generator=generator)
+    words = descs[perm.long()]
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    counts = torch.zeros(n_words, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        assign = torch.cat([nearest_word(words, descs[n0:n0 + block], valid[n0:n0 + block])
+                            for n0 in range(0, N, block)])
+        words, counts = _em_update(words, descs, valid, assign, n_words)
     return Vocabulary(words=words, idf=_idf(counts))
 
 
@@ -89,10 +132,11 @@ def save_vocabulary(path: str, vocab: Vocabulary):
     np.savez_compressed(path, words=vocab.words.cpu().numpy(), idf=vocab.idf.cpu().numpy())
 
 
-def load_vocabulary(path: str, device=None) -> Vocabulary:
-    """A saved codebook on ``device`` (the card unless told otherwise)."""
+def load_vocabulary(path: str = None, device=None) -> Vocabulary:
+    """A saved codebook (the port's ``VOCAB32K`` when ``path`` is None) on
+    ``device`` (the card unless told otherwise)."""
     dev = resolve_device(device)
-    z = np.load(path)
+    z = np.load(VOCAB32K if path is None else path)
     return Vocabulary(words=torch.as_tensor(z["words"]).to(dev),
                       idf=torch.as_tensor(z["idf"]).to(dev))
 

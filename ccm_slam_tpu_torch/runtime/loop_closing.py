@@ -186,7 +186,7 @@ def _fuse_loop(m_work, W, q, loop_mask, gp_t_idx, gp_okm, cam, cfg):
     okg = gp_okm & loop_mask
     free_hit = okg & (existing < 0)
     tsafe = torch.where(free_hit, f_idx, N - 1)
-    row = ms._add_at(row, (tsafe,), torch.where(free_hit, lm_ids - row[tsafe], 0))
+    row = ms._add_at(row, (tsafe,), torch.where(free_hit, lm_ids - row[tsafe], 0), free_hit)
     m_work = m_work.replace(kfs=kfs.replace(mp_idx=ms._set_row(kfs.mp_idx, q, row)))
     dup = okg & (existing >= 0) & (existing != lm_ids)
     loser = torch.where(dup, existing.clamp(0, Mcap - 1), -1)

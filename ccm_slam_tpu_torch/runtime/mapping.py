@@ -11,9 +11,10 @@ deterministic step run right after each keyframe insertion.
   LocalBundleAdjustmentClient    -> local_ba()
 
 Redundant-keyframe culling (KeyFrameCullingV3, :771-863), which the
-single-agent standalone system runs: ``keyframe_redundancy()`` and
-``cull_redundant_keyframes()``.  The server and trimming functions
-(``cull_mappoints_server``, ``trim_keyframes``) are not ported yet.
+single-agent standalone system and the server run: ``keyframe_redundancy()``
+and ``cull_redundant_keyframes()``.  The server's landmark culling
+(MapPointCullingServer, :738-770) is ``cull_mappoints_server()``; the
+client's local-map bound (Map::MapTrimming) is ``trim_keyframes()``.
 ``jax.lax.top_k`` becomes ``top_k_stable`` (lower index first among
 equals).
 """
@@ -44,6 +45,44 @@ def cull_mappoints(m: ms.MapState, cur_kf_id, cfg: SystemConfig):
     age = int(cur_kf_id) - mps.first_kf_id
     kill = alive & (age <= 3) & ((found_ratio < 0.25) | ((age >= 2) & (mps.obs_n <= 2)))
     return ms.erase_mappoints(m, kill), torch.sum(kill)
+
+
+def cull_mappoints_server(m: ms.MapState, cfg: SystemConfig):
+    """Server-side recent-landmark culling (MapPointCullingServer,
+    cslam/src/Mapping.cpp:738-770): landmarks at most 4 ingested keyframes
+    old whose found ratio fell below 0.25, or that are >= 3 old with <= 3
+    observations, are retired.  Age is the keyframe cursor minus the
+    landmark's arrival stamp.  Returns (map, n_culled)."""
+    mps = m.mps
+    alive = mps.valid & ~mps.bad
+    age = m.next_kf - torch.clamp(mps.first_kf_id, min=0)
+    found_ratio = mps.n_found.to(torch.float32) / torch.clamp(
+        mps.n_visible.to(torch.float32), min=1.0)
+    kill = alive & (age <= 4) & ((found_ratio < 0.25) | ((age >= 3) & (mps.obs_n <= 3)))
+    return ms.erase_mappoints(m, kill), torch.sum(kill)
+
+
+def trim_keyframes(m: ms.MapState, cfg: SystemConfig, trimmable=None):
+    """Client local-map bound (Map::MapTrimming, cslam/src/Map.cpp:857-1063):
+    keep the newest ``local_map_size`` keyframes by insertion order, erase
+    the rest.  ``trimmable`` [K] bool (CanBeForgotten: sent AND acked,
+    ``communicator.trimmable_mask``): keyframes beyond the window that are
+    not trimmable yet are kept and counted in n_held.  Landmarks left with
+    no observation die with them.  Returns (map, n_trimmed, n_held)."""
+    kfs = m.kfs
+    alive = kfs.valid & ~kfs.bad
+    order = torch.where(alive, kfs.insert_order, -1)
+    newer = torch.sum((order[:, None] < order[None, :]).to(torch.int32), dim=1)
+    over = alive & ~(newer < cfg.mapping.local_map_size)
+    if trimmable is None:
+        kill = over
+        n_held = torch.zeros((), dtype=torch.int64, device=alive.device)
+    else:
+        kill = over & trimmable
+        n_held = torch.sum(over & ~trimmable)
+    m = ms.erase_keyframes(m, kill)
+    orphan = m.mps.valid & ~m.mps.bad & (m.mps.obs_n == 0)
+    return ms.erase_mappoints(m, orphan), torch.sum(kill), n_held
 
 
 def _skew(v):
@@ -147,7 +186,7 @@ def triangulate_new_points(m: ms.MapState, kf_idx, cam, cfg: SystemConfig,
         mp_row1 = torch.where(good, new_idx, kfs2.mp_idx[k])
         feat2 = torch.where(good, idx2c, N - 1)
         row2 = kfs2.mp_idx[nb]
-        mp_row2 = ms._add_at(row2, (feat2,), torch.where(good, new_idx - row2[feat2], 0))
+        mp_row2 = ms._add_at(row2, (feat2,), torch.where(good, new_idx - row2[feat2], 0), good)
         mp_idx = ms._set_row(ms._set_row(kfs2.mp_idx, k, mp_row1), nb, mp_row2)
         m = m.replace(kfs=kfs2.replace(mp_idx=mp_idx))
         new_obs = torch.where(good, new_idx, NO_MP)
@@ -198,7 +237,7 @@ def _fuse_links(m, target_kf, t_idx, okm, cand, cand_wins):
     existing = row[t_idx.clamp(0, N - 1).long()]
     free_hit = okm & (existing < 0)
     tsafe = torch.where(free_hit, t_idx, N - 1).long()
-    row = ms._add_at(row, (tsafe,), torch.where(free_hit, cand - row[tsafe], 0))
+    row = ms._add_at(row, (tsafe,), torch.where(free_hit, cand - row[tsafe], 0), free_hit)
     m = m.replace(kfs=kfs.replace(mp_idx=ms._set_row(kfs.mp_idx, target_kf, row)))
     dup_hit = okm & (existing >= 0) & (existing != cand)
     ex_safe = existing.clamp(0, Mcap - 1)
@@ -425,14 +464,16 @@ def local_ba(m: ms.MapState, kf_idx, cam, cfg: SystemConfig, iters: int = 15):
     co = torch.where(move_cam, cam_order, K - 1)
     kfs2 = kfs.replace(
         R_cw=ms._add_at(kfs.R_cw, (co,), torch.where(move_cam[:, None, None],
-                                                     R - kfs.R_cw[co], 0.0)),
-        t_cw=ms._add_at(kfs.t_cw, (co,), torch.where(move_cam[:, None], t - kfs.t_cw[co], 0.0)),
-        pose_version=ms._add_at(kfs.pose_version, (co,), move_cam.to(torch.int32)),
+                                                     R - kfs.R_cw[co], 0.0), move_cam),
+        t_cw=ms._add_at(kfs.t_cw, (co,), torch.where(move_cam[:, None], t - kfs.t_cw[co], 0.0),
+                        move_cam),
+        pose_version=ms._add_at(kfs.pose_version, (co,), move_cam.to(torch.int32), move_cam),
     )
     po = torch.where(point_valid, lm_sel, M - 1)
     mps2 = mps.replace(
-        pos=ms._add_at(mps.pos, (po,), torch.where(point_valid[:, None], X - mps.pos[po], 0.0)),
-        pos_version=ms._add_at(mps.pos_version, (po,), point_valid.to(torch.int32)),
+        pos=ms._add_at(mps.pos, (po,), torch.where(point_valid[:, None], X - mps.pos[po], 0.0),
+                       point_valid),
+        pos_version=ms._add_at(mps.pos_version, (po,), point_valid.to(torch.int32), point_valid),
     )
     m = m.replace(kfs=kfs2, mps=mps2)
 
@@ -440,6 +481,6 @@ def local_ba(m: ms.MapState, kf_idx, cam, cfg: SystemConfig, iters: int = 15):
     good_obs = ba.classify_outliers(prob, R, t, X)
     cur = m.kfs.mp_idx[obs_sel_kf, feat]
     rm = prob.obs_valid & ~good_obs & (cur == lm_sel[:, None])
-    mp_idx2 = ms._add_at(m.kfs.mp_idx, (obs_sel_kf, feat), torch.where(rm, NO_MP - cur, 0))
+    mp_idx2 = ms._add_at(m.kfs.mp_idx, (obs_sel_kf, feat), torch.where(rm, NO_MP - cur, 0), rm)
     m = ms.rebuild_observations(m.replace(kfs=m.kfs.replace(mp_idx=mp_idx2)))
     return m, cost, n_good, n_trunc

@@ -10,7 +10,10 @@ counted in ``stats["host_reads"]`` (a device sync on the card).
 Tracking-loss policy as the reference: reset if lost before ``init_kfs``
 keyframes after initialization, else LOST.  ``enable_relocalization`` arms
 the staged PnP recovery (inline rescue, then the reference keyframe's
-covisibility neighborhood, then the whole map).
+covisibility neighborhood, then the whole map).  ``enable_trimming`` bounds
+the client map to the newest ``local_map_size`` keyframes
+(``mapping.trim_keyframes``, Map::MapTrimming), erasing only those that
+``trim_mask_fn`` calls trimmable (sent and acked).
 
 Randomness: RANSAC samples come from ``rng``, a ``torch.Generator`` on the
 device seeded ``42 + client_id`` (the reference seeds ``PRNGKey(42 +
@@ -69,7 +72,11 @@ class Tracker:
     kf_events: list = field(default_factory=list)  # new-KF arena idx stream
     rng: Optional[torch.Generator] = None
     enable_mapping: bool = True
-    enable_trimming: bool = False
+    enable_trimming: bool = False  # standalone evaluation keeps the full map
+    # CanBeForgotten gate of trimming (Map::MapTrimming erases only sent and
+    # acked entities): a callable map -> [K] bool, e.g.
+    # communicator.trimmable_mask over the live comm state
+    trim_mask_fn: object = None
     enable_relocalization: bool = False
     reset_epoch: int = 0
     last_compaction: object = None  # (kf_remap, mp_remap) of the latest compact
@@ -78,10 +85,6 @@ class Tracker:
         "local_ba_calls": 0, "local_ba_iters": 0, "ref_kf_tracks": 0, "brute_matches": 0})
 
     def __post_init__(self):
-        if self.enable_trimming:
-            raise NotImplementedError(
-                "client map trimming (mapping.trim_keyframes) is not ported yet: "
-                "ROADMAP.md section 3, queue item 'mapping.py server and trimming part'")
         self.device = resolve_device(self.device)
         if self.rng is None:
             self.rng = torch.Generator(device=self.device).manual_seed(42 + self.client_id)
@@ -339,6 +342,13 @@ class Tracker:
             self.stats["mp_created"] += self._int(n_new)
             self.map, _, _, redir = mapping.fuse_neighbors(self.map, k, self.cam, cfg)
             self._check_replaced(redir)
+            if self.enable_trimming:
+                trimmable = None if self.trim_mask_fn is None else self.trim_mask_fn(self.map)
+                self.map, n_trim, n_held = mapping.trim_keyframes(self.map, cfg, trimmable)
+                self.stats["kf_trimmed"] = self.stats.get("kf_trimmed", 0) + self._int(n_trim)
+                n_held = self._int(n_held)
+                if n_held > 0:  # comm backpressure: over-window keyframes not
+                    self.stats["trim_held"] = n_held  # yet sent and acked
             self.map, _, _, n_trunc = self._local_ba(k, 15)
             if cfg.mapping.second_fuse_pass:
                 # re-fuse on the refined geometry, then a short BA

@@ -86,7 +86,7 @@ def initialize_map(f_ref: Frame, f_cur: Frame, match_idx, match_ok, cam, cfg: Sy
         f_ref.xy, f_ref.desc, f_ref.octave, f_ref.angle, f_ref.valid, mp_assoc=mp_idx)
     assoc1 = torch.full((N,), NO_MP, dtype=torch.int32, device=dev)
     tgt = torch.where(good, cur_feat, N - 1)
-    assoc1 = ms._add_at(assoc1, (tgt,), torch.where(good, mp_idx - assoc1[tgt], 0))
+    assoc1 = ms._add_at(assoc1, (tgt,), torch.where(good, mp_idx - assoc1[tgt], 0), good)
     m, k1 = ms.add_keyframe(
         m, 1, int(client_id), f_cur.timestamp, out["R"], t_kf1,
         f_cur.xy, f_cur.desc, f_cur.octave, f_cur.angle, f_cur.valid, mp_assoc=assoc1)
@@ -174,7 +174,7 @@ def _scatter_assoc(assoc, okm, t_idx, src, n_feat):
     """assoc.at[t_idx].add(where(okm, src - assoc[t_idx], 0)) with masked
     lanes routed to the last slot (the reference's delta discipline)."""
     tsafe = torch.where(okm, t_idx, n_feat - 1).long()
-    return ms._add_at(assoc, (tsafe,), torch.where(okm, src - assoc[tsafe], 0))
+    return ms._add_at(assoc, (tsafe,), torch.where(okm, src - assoc[tsafe], 0), okm)
 
 
 def track_with_motion_model(m: ms.MapState, frame: Frame, last: Frame, vel_R, vel_t, cam,

@@ -26,14 +26,18 @@ that path's own expected counts after it:
      (F=6 and F=12) at the stress shape (C=1024, P=131,072, K=8),
      ``cam_broadcast`` (F=12) also at the local-BA, initialization-BA and
      bench shapes, warm and with L2 flushed before each call, beside
-     ``index_select``; ``hamming_top2`` at 1024 x 1024, 1024 x 16384 and
-     1024 x 24576 against the 1-bit MMA rate measured in phase 1; then the
-     solve's wall and device time;
+     ``index_select``; ``hamming_top2`` at 1024 x 1024, 1024 x 16384,
+     1024 x 24576, 1024 x 32768 (a BoW transform against vocab32k) and
+     81,920 x 32,768 (an ingest's BoW batch against vocab32k) against the
+     1-bit MMA rate measured in phase 1; then the solve's wall
+     and device time;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 and 1024 x
      1024 with a quarter of the targets invalid, a ragged case, invalid
      queries, a single valid target, ties inside one 8-target MMA tile,
-     across tiles and across the kernel's target slices, all targets equal
-     -- equal outputs, and bit-identical on a second run;
+     across tiles and across the kernel's target slices, all targets equal,
+     the vocabulary bootstrap's 163,840 x 1,024, a BoW transform's 1,024 x
+     32,768 and an ingest's BoW batch, (80 x 1,024) x 32,768 -- equal
+     outputs, and bit-identical on a second run;
   6. the client bootstrap at 752x480: rendered corridor frames (EuRoC
      intrinsics and radtan) -> ``orb.extract`` -> ``build_frame`` ->
      ``search_for_initialization`` -> ``initialize_two_view``, gated on the
@@ -67,7 +71,20 @@ that path's own expected counts after it:
      keyframe ATE; walls per frame, per loop-closing stage, of the bootstrap
      and of each GBA (with its device time and CG steps), and the device
      kernels and busy share of the closing ``try_close`` replayed under the
-     profiler.
+     profiler;
+ 13. two agents merge on the server at full width: two ``Tracker``s over
+     overlapping spans of the rendered corridor (2 x 120 frames at 752x480,
+     rendered on the card), each publishing every 4th step through the
+     wire codec (``pack_map_msg``/``unpack_map_msg``, both directions) into
+     a ``Server`` with the port's vocab32k (``ingest``, ``mapping_step``
+     per new keyframe: fusion, loop detection, cross-map matching and the
+     merge; ``idle_step`` every step: interruptible GBA chunks, then the
+     final GBA); gated on the merge (both agents in one slot), each agent's
+     keyframe ATE and the fused map's structure, launches held to
+     ``server_want``; walls per frame, ingest and mapping step, of the
+     merging ``try_match``, its ``correct_loop`` and the merge and final
+     GBAs (device time, CG steps), and the merging ``try_match`` replayed
+     under the profiler.
 
 It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
@@ -85,6 +102,7 @@ phase fails.  Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -102,9 +120,11 @@ from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_ke
 from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
 from ccm_slam_tpu_torch.profile_gba import profile_gba
 from ccm_slam_tpu_torch.ops import bow
-from ccm_slam_tpu_torch.runtime import loop_closing, mapping, tracking
+from ccm_slam_tpu_torch.runtime import communicator as comm
+from ccm_slam_tpu_torch.runtime import loop_closing, map_matching, mapping, tracking, wire
 from ccm_slam_tpu_torch.runtime.frame import build_frame
 from ccm_slam_tpu_torch.runtime.loop_closing import LoopFinder
+from ccm_slam_tpu_torch.runtime.server import Server
 from ccm_slam_tpu_torch.runtime.standalone import StandaloneSystem
 from ccm_slam_tpu_torch.runtime.tracker import LOST, OK, Tracker
 from ccm_slam_tpu_torch.solvers import ba, pose_graph, pose_opt
@@ -113,7 +133,7 @@ from tools import mma_b1_rate
 from tools.kernel_timing import (HUBER, blocks_entry, broadcast_entry, cost_entry,
                                  device_events, log, off_entry, problem_args, reduce_entry,
                                  rhs_wtv_entry, schur_inputs, time_table, top2_inputs,
-                                 top2_timing)
+                                 top2_plain_rows, top2_timing)
 
 CG_ITERS = 16              # ba_solve's cap on CG steps per LM iteration
 SOURCE = "ccm_slam_tpu_torch/csrc/ba_kernels.cu"
@@ -158,6 +178,15 @@ PROFILED_FRAMES = (150, 151, 152)  # frames run under torch.profiler
 # keyframe ATE 0.1816 m after the final run_gba(40) over a 37.72 m span)
 LOOP_FRAMES = 340
 JAX_LOOP_ATE_M = 0.18155796825885773
+# phase 13: two agents on RenderedSequence("corridor", seed=0, n_frames=120)
+# over the spans below, the server merging their maps, and the JAX package's
+# own keyframe ATE per agent on that run at 752x480 (``python3
+# tools/jax_merge_ate.py --factor 1.0``, JAX on the CPU: 119 of 120 frames
+# tracked per agent, merged at step 51 on keyframes (0, 18) and (1, 1), 25
+# and 19 keyframes, spans 13.673 m and 13.580 m)
+MERGE_FRAMES = 120
+MERGE_SPANS = ((0.0, 0.16), (0.08, 0.24))
+JAX_MERGE_ATE_M = (0.062455903738737106, 0.05848011001944542)
 CAMERA_PERIOD_MS = 50.0            # EuRoC's 20 fps
 PROFILE_REPS = 20                  # phase 10: profile_gba repetitions
 
@@ -454,13 +483,16 @@ def top2_cases(dev):
     vocabulary bootstrap's shape (phase 12): 160 keyframe slots x 1,024
     feature slots against 1,024 words, the features of three keyframes
     valid (98% of the queries invalid), every word valid and a copy of a
-    valid feature, two words equal."""
+    valid feature, two words equal; a keyframe's BoW transform against the
+    32,768 words of vocab32k, every word valid; and an ingest's BoW batch
+    against them (``ingest_top2_inputs``, phase 13)."""
     cases = {}
     for i, (name, Q, Tn) in enumerate((
             ("1024x16384", 1024, 16384), ("1024x1024", 1024, 1024),
             ("ragged 100x300", 100, 300), ("30 invalid queries", 128, 256),
             ("one valid target", 64, 500), ("ties at tile and slice edges", 1000, 3001),
-            ("all targets equal", 96, 1000), ("bootstrap 163840x1024", 160 * 1024, 1024))):
+            ("all targets equal", 96, 1000), ("bootstrap 163840x1024", 160 * 1024, 1024),
+            ("vocab32k 1024x32768", 1024, 32768))):
         q, qv, t, tv = top2_inputs(Q, Tn, torch.device("cpu"), seed=5 + i)
         if name.startswith("bootstrap"):
             qv = (torch.arange(Q) < 3 * 1024) & (torch.arange(Q) % 1024 < 1000)
@@ -483,8 +515,28 @@ def top2_cases(dev):
                 tv[a] = tv[b] = True
         if name.startswith("all"):
             t[:] = t[0]
+        if name.startswith("vocab"):  # a BoW transform: every word valid
+            tv[:] = True
         cases[name] = tuple(x.to(dev) for x in (q, qv, t, tv))
+    cases["ingest 80x1024x32768"] = ingest_top2_inputs(dev)
     return cases
+
+
+def ingest_top2_inputs(dev, live=40, rows=80, seed=21):
+    """An ingest's BoW batch (``keyframe_db.batch_vectors``, phase 13):
+    ``rows`` keyframe rows of 1,024 feature slots (the pending buffer and a
+    message of ``client_pub_max_kfs`` = 40 each), ``live`` of them new
+    keyframes with 95% of their features valid; the other rows read arena
+    slot 0, as ``batch_vectors`` clamps them (here: copies of row 0).
+    Against the 32,768 words of vocab32k, every word valid, two equal."""
+    q, _, t, _ = top2_inputs(rows * 1024, 32768, torch.device("cpu"), seed=seed)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qv = torch.rand(rows * 1024, generator=g) < 0.95
+    qk, qvk = q.view(rows, 1024, 32), qv.view(rows, 1024)
+    qk[live:] = qk[0]
+    qvk[live:] = qvk[0]
+    tv = torch.ones(t.shape[0], dtype=torch.bool)
+    return tuple(x.to(dev) for x in (q, qv, t, tv))
 
 
 def check_hamming(dev):
@@ -494,7 +546,7 @@ def check_hamming(dev):
     for name, args in top2_cases(dev).items():
         out = hk.hamming_top2(*args)
         again = hk.hamming_top2(*args)
-        ref = hk.hamming_top2_plain(*args)
+        ref = top2_plain_rows(hk, *args)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(out, ref))
         repeat = all(torch.equal(a, b) for a, b in zip(out, again))
@@ -1159,6 +1211,199 @@ def check_standalone_loop(dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: two rendered agents merge on the server at full width.
+# ---------------------------------------------------------------------------
+
+
+def server_want(srv, trackers):
+    """The kernel launches of a two-agent server run, from what it counted:
+    each tracker's (``client_want``); per GBA of n iterations on C camera
+    slots ``solve_launches(n)`` on its branch (PCG above ``pcg_min_c()``),
+    with the final statistics unless it was an interruptible chunk; one
+    hamming_top2 per BoW batch (each ingest's, the matcher's and the loop
+    finders' transforms) and per ``estimate_sim3`` attempt (loop finders and
+    matcher)."""
+    want = {}
+
+    def add(part):
+        for name, n in part.items():
+            lo, hi = n if isinstance(n, tuple) else (n, n)
+            w = want.get(name, 0)
+            wlo, whi = w if isinstance(w, tuple) else (w, w)
+            want[name] = (wlo + lo, whi + hi)
+
+    for tr in trackers:
+        add(client_want(tr))
+    for iters, C, stats in srv.stats["gba"]:
+        add(solve_launches(iters, pcg=C > ba.pcg_min_c(), stats=stats))
+    searches = [srv.matcher.stats] + [f.stats for f in srv.finders.values()]
+    add({"hamming_top2": srv.stats["bow_batches"] + sum(
+        s["bow_transforms"] + s["sim3_attempts"] for s in searches)})
+    return want
+
+
+def check_two_agent_merge(dev, smi):
+    """Phase 13: the drive loop of tests/test_rendered_merge.py at 752x480 --
+    two agents over overlapping corridor spans, each publishing every 4th
+    step through the wire codec both ways, the server ingesting, running
+    ``mapping_step`` per new keyframe and ``idle_step`` every step, then
+    ``quiescence_steps + 2`` more; counted.  Gated on the merge (both agents
+    in one slot), each agent's keyframe ATE (max(0.02 span + 0.05, 2 x the
+    JAX package's)) and the fused map's structure.  Returns the counts."""
+    cfg = config.rendered_ci_config(factor=1.0)
+    cfg = cfg.replace(n_agents=2, placerec=dataclasses.replace(
+        cfg.placerec, start_map_matching_after_kf=5))
+    cam = Camera.from_config(cfg.camera, dev)
+    seqs = [RenderedSequence(world="corridor", seed=0, n_frames=MERGE_FRAMES, span=sp,
+                             cam=cfg.camera, backend="torch", device=dev) for sp in MERGE_SPANS]
+    t0 = time.perf_counter()
+    images = [[s.render_frame(i) for i in range(MERGE_FRAMES)] for s in seqs]
+    torch.cuda.synchronize()
+    log(f"  rendered 2 x {MERGE_FRAMES} frames {tuple(images[0][0].shape)} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stamps = [[s.gt_pose(i)[0] for i in range(MERGE_FRAMES)] for s in seqs]
+    vocab = bow.load_vocabulary(device=dev)
+    srv = Server(cfg=cfg, cam=cam, vocab=vocab, n_agents=2, device=dev)
+    trackers = [Tracker(cfg=cfg, cam=cam, client_id=i, device=dev) for i in range(2)]
+    states = [comm.ClientCommState.create(cfg.capacity.client_max_kfs,
+                                          cfg.capacity.client_max_mps) for _ in range(2)]
+    stages = StageWalls()
+    for owner, attr, name in ((Server, "ingest", "ingest"),
+                              (Server, "mapping_step", "mapping_step"),
+                              (map_matching, "correct_loop", "the merge's correct_loop")):
+        stages.wrap(owner, attr, name)
+    merge, gbas, frame_walls = {}, [], []
+    try_match, run_gba = srv.matcher.try_match, srv._run_gba
+    step_now = [0]
+
+    def traced_try_match(slot, m_a, kf_idx, maps, sample=None):
+        state = dict(db=srv.matcher.db, kf_capacity=srv.matcher.kf_capacity,
+                     rng=srv.matcher.rng.get_state(), args=(slot, m_a, kf_idx, dict(maps)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = try_match(slot, m_a, kf_idx, maps, sample)
+        torch.cuda.synchronize()
+        if res is not None and not merge:
+            k_q, k_c = res.kf_pair
+            kf_id, cl = res.fused.kfs.kf_id.cpu().numpy(), res.fused.kfs.client_id.cpu().numpy()
+            merge.update(state, step=step_now[0], wall=(time.perf_counter() - t1) * 1e3,
+                         pair=((int(cl[k_q]), int(kf_id[k_q])), (int(cl[k_c]), int(kf_id[k_c]))))
+        return res
+
+    def traced_gba(slot, iters, with_stats=True, carry=False, block=True):
+        """20-iteration GBAs (the merge GBA, the final GBA) under the
+        profiler: wall, device time, CG steps; chunks run as they are."""
+        if carry:
+            return run_gba(slot, iters, with_stats, carry, block)
+        off0 = bk.launch_counts()["schur_off"]
+        cost, device, wall = profiled(lambda: run_gba(slot, iters, with_stats, carry, block))
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        label = "merge GBA" if merge and not any(g[0] == "merge GBA" for g in gbas) \
+            else "final GBA"
+        gbas.append((label, iters, wall, busy, bk.launch_counts()["schur_off"] - off0,
+                     sum(e.count for e in device)))
+        return cost
+
+    srv.matcher.try_match, srv._run_gba = traced_try_match, traced_gba
+
+    def drive():
+        tracked = [0, 0]
+        for step in range(MERGE_FRAMES):
+            step_now[0] = step
+            for i in (0, 1):
+                tr = trackers[i]
+                t1 = time.perf_counter()
+                out = tr.process_image(images[i][step], stamps[i][step])
+                torch.cuda.synchronize()
+                frame_walls.append((time.perf_counter() - t1) * 1e3)
+                tracked[i] += out is not None
+                if tr.map is None or step % 4 != 3:
+                    continue
+                msg, states[i] = comm.publish_client(
+                    tr.map, states[i], i, max_kfs=cfg.comm.client_pub_max_kfs,
+                    max_mps=cfg.comm.client_pub_max_mps)
+                if msg.empty:
+                    continue
+                msg = wire.unpack_map_msg(wire.pack_map_msg(msg), device=dev)
+                new_ids = [int(k) for k, v in zip(msg.kfs.kf_id.cpu().numpy(),
+                                                  msg.kfs.valid.cpu().numpy()) if v]
+                ack = wire.unpack_map_msg(wire.pack_map_msg(srv.ingest(i, msg)), device=dev)
+                states[i] = comm.apply_server_acks(states[i], tr.map, ack)
+                ag = srv.agents[i]
+                for kf_id in new_ids:
+                    if kf_id in ag.kf_table:
+                        srv.mapping_step(i, ag.kf_table[kf_id])
+            srv.idle_step()
+        for _ in range(srv.quiescence_steps + 2):
+            srv.idle_step()
+        torch.cuda.synchronize()
+        return tracked
+
+    t0 = time.perf_counter()
+    try:
+        tracked, counts = counted("two-agent merge", drive,
+                                  lambda _: server_want(srv, trackers))
+    finally:
+        stages.restore()
+    run_s = time.perf_counter() - t0
+    slot = srv.agents[0].map_slot
+    shared = srv.agents[1].map_slot == slot and len(srv.maps) == 1
+    structure = ms.check_structure(srv.maps[slot])
+    ates = []
+    for i in (0, 1):
+        ts, R, t = srv.trajectory(i)
+        est = camera_centers(torch.as_tensor(R), torch.as_tensor(t)).numpy()
+        gt_ts, gt_pos, _ = seqs[i].ground_truth()
+        gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
+        rmse, _ = ate_rmse(est, gt, align="sim3")
+        span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        gate = max(0.02 * span + 0.05, 2.0 * JAX_MERGE_ATE_M[i])
+        ates.append((rmse, span, gate, len(ts)))
+    ok = (bool(merge) and shared and structure == []
+          and all(rmse < gate for rmse, _, gate, _ in ates))
+    log(f"  frames tracked: agent 0 {tracked[0]}/{MERGE_FRAMES}, agent 1 {tracked[1]}/"
+        f"{MERGE_FRAMES}; merged {bool(merge)} at step {merge.get('step')} on the keyframe pair "
+        f"(client, kf id) {merge.get('pair')}; both agents in slot {slot} {shared}; "
+        f"check_structure {len(structure)} findings (0)")
+    for i, (rmse, span, gate, n) in enumerate(ates):
+        log(f"  agent {i}: {n} keyframes, keyframe ATE {rmse:.4f} m over a {span:.3f} m span "
+            f"(gate {gate:.4f} m = max(0.02 span + 0.05, 2 x the JAX package's "
+            f"{JAX_MERGE_ATE_M[i]:.4f} m))  {'ok' if rmse < gate else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the two-agent merge failed its gates: {structure[:5]}")
+    st = srv.stats
+    n_chunks = sum(1 for _, _, stats in st["gba"] if not stats)
+    log(f"[times] two-agent merge, {smi}: {run_s:.1f} s; per-frame wall (both agents, each "
+        f"ending in a sync) median {statistics.median(frame_walls):.3f} ms; {st['ingests']} "
+        f"ingests, {len(st['gba'])} GBA calls ({n_chunks} interruptible chunks); loop closures "
+        f"attempted {sum(f.stats['sim3_attempts'] for f in srv.finders.values())}, merge "
+        f"attempts {srv.matcher.stats['sim3_attempts']}")
+    for name, ws in stages.ms.items():
+        log(f"  {name}, {smi}: {len(ws)} call(s), median {statistics.median(ws):.3f} ms, "
+            f"min {min(ws):.3f}, max {max(ws):.3f}, total {sum(ws):.1f}")
+    log(f"  the merging try_match, {smi}: {merge['wall']:.3f} ms")
+    for name, iters, wall, busy, off, n_k in gbas:
+        log(f"  {name} ({iters} iterations, {smi}): wall {wall:.3f} ms (profiler on), device "
+            f"busy {busy:.3f} ms ({busy / wall:.1%}), {off - iters if off else 0} CG steps, "
+            f"{n_k} device kernels")
+    mm = map_matching.MapMatcher(cfg=cfg, cam=cam, vocab=vocab, n_slots=2,
+                                 kf_capacity=merge["kf_capacity"], db=merge["db"],
+                                 rng=torch.Generator(device=dev))
+    mm.rng.set_state(merge["rng"])
+    res, device, wall = profiled(lambda: mm.try_match(*merge["args"]))
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    log(f"  the merging step's try_match replayed under the profiler ({smi}): merged again "
+        f"{res is not None}, wall {wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+        f"{sum(e.count for e in device)} device kernels, the port's CUDA kernels "
+        f"{port_kernels_ms(device):.3f} ms")
+    if res is None:
+        raise AssertionError("the merging try_match did not merge again on its replay")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.key[:70]:<70} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1319,9 +1564,17 @@ def main() -> int:
         f"cam_broadcast at the stress shape; {smi}")
     new_times = stress_timings(stress, rng)
     log(f"[times] hamming_top2 (relocalization against phase 7's arena, 24,576-slot arenas, "
-        f"keyframe pairs); {smi}")
+        f"keyframe pairs, a keyframe's BoW transform and an ingest's BoW batch against "
+        f"vocab32k: every word valid); "
+        f"{smi}")
     top2_times = {f"{Q}x{Tn}": top2_timing(hk, top2_inputs(Q, Tn, dev), rate, f"{Q} x {Tn}")
                   for Q, Tn in ((1024, 16384), (1024, 24576), (1024, 1024))}
+    q, qv, t, tv = top2_inputs(1024, 32768, dev)
+    top2_times["1024x32768"] = top2_timing(hk, (q, qv, t, torch.ones_like(tv)), rate,
+                                           "1024 x 32768 (vocab32k)")
+    top2_times["81920x32768"] = top2_timing(
+        hk, ingest_top2_inputs(dev), rate, "(80 x 1024) x 32768 (an ingest's BoW batch)",
+        plain=lambda *a: top2_plain_rows(hk, *a))
     walls = time_solve(bench, 20, 5)
     wall = statistics.median(walls)
     port_ms = sum(gba[name] * times[name]["ms"] for name in times)
@@ -1404,6 +1657,13 @@ def main() -> int:
     loop_counts = check_standalone_loop(dev, smi)
     log(f"  phase-12 launches: {json.dumps(loop_counts)}")
     phase_done(12)
+
+    # -- phase 13: two agents merge on the server ---------------------------------
+    log("[server] two rendered agents at 752x480 (rendered_ci_config(1.0), vocab32k) -> "
+        "publish -> wire -> Server.ingest / mapping_step / idle_step -> merge -> GBA")
+    merge_counts = check_two_agent_merge(dev, smi)
+    log(f"  phase-13 launches: {json.dumps(merge_counts)}")
+    phase_done(13)
 
     # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
     # its windows miscounted, the CUDA-event time

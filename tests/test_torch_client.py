@@ -129,7 +129,30 @@ def test_map_consistency(tracked_run):
     assert checked > 50
 
 
-def test_trimming_is_refused():
+def test_trimming_is_refused(tracked_run):
+    """Trimming is refused for keyframes not yet sent and acked (the
+    CanBeForgotten gate, ``trimmable`` all False): nothing is erased and the
+    keyframes beyond the window are held; with every keyframe trimmable the
+    same window erases them.  The Tracker takes ``enable_trimming`` with
+    its ``trim_mask_fn``."""
+    import dataclasses
+
+    from ccm_slam_tpu_torch.runtime import mapping
+
+    tracker, _, _ = tracked_run
+    m = tracker.map
+    cfg = small_config()
+    cfg = cfg.replace(mapping=dataclasses.replace(cfg.mapping, local_map_size=2))
+    n_alive = int((m.kfs.valid & ~m.kfs.bad).sum())
+    none = torch.zeros(m.kfs.capacity, dtype=torch.bool)
+    held, n_trim, n_held = mapping.trim_keyframes(m, cfg, none)
+    assert int(n_trim) == 0 and int(n_held) == n_alive - 2 > 0
+    assert torch.equal(held.kfs.bad, m.kfs.bad)
+    trimmed, n_trim, n_held = mapping.trim_keyframes(m, cfg, ~none)
+    assert int(n_trim) == n_alive - 2 and int(n_held) == 0
+    alive = trimmed.kfs.valid & ~trimmed.kfs.bad
+    assert int(alive.sum()) == 2 and bool((trimmed.kfs.insert_order[alive] >= n_alive - 2).all())
     cam = Camera.from_config(CameraConfig(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tracker(cfg=small_config(), cam=cam, device="cpu", enable_trimming=True)
+    tr = Tracker(cfg=small_config(), cam=cam, device="cpu", enable_trimming=True,
+                 trim_mask_fn=lambda m: torch.zeros(m.kfs.capacity, dtype=torch.bool))
+    assert tr.enable_trimming

@@ -434,7 +434,8 @@ def top2_mma_case(name, dev):
     slices and at the last target, and one tie whose lower target is
     invalid; all targets equal; no valid target; invalid queries."""
     g = torch.Generator(device="cpu").manual_seed(17)
-    Q, T = {"1024x1024": (1024, 1024), "1024x24576": (1024, 24576)}.get(name, (37, 1003))
+    Q, T = {"1024x1024": (1024, 1024), "1024x24576": (1024, 24576),
+            "vocab_1024x32768": (1024, 32768)}.get(name, (37, 1003))
     q = torch.randint(0, 256, (Q, 32), generator=g, dtype=torch.uint8)
     t = torch.randint(0, 256, (T, 32), generator=g, dtype=torch.uint8)
     qv = torch.ones(Q, dtype=torch.bool)
@@ -453,11 +454,14 @@ def top2_mma_case(name, dev):
         tv[:] = False
     if name == "invalid_queries":
         qv[::3] = False
+    if name == "vocab_1024x32768":  # a keyframe's BoW transform: every word valid
+        tv[:] = True
+        qv[1000:] = False
     return [x.to(dev) for x in (q, qv, t, tv)]
 
 
-@pytest.mark.parametrize("name", ["1024x1024", "1024x24576", "ragged_ties", "all_equal",
-                                  "no_valid_target", "invalid_queries"])
+@pytest.mark.parametrize("name", ["1024x1024", "1024x24576", "vocab_1024x32768", "ragged_ties",
+                                  "all_equal", "no_valid_target", "invalid_queries"])
 def test_hamming_top2_kernel_tiles_and_slices(name):
     """Exact against the plain version (all three outputs) and bit-identical
     on a rerun, where ties fall inside an MMA tile, across tiles and across
@@ -556,3 +560,111 @@ def test_estimate_sim3_on_card_matches_cpu():
     for name in ("s", "R", "t"):
         torch.testing.assert_close(getattr(g["S_qc"], name).cpu(), getattr(c["S_qc"], name),
                                    rtol=1e-4, atol=1e-4)
+
+
+def server_inputs(dev):
+    """(config, messages, vocabulary): the first two messages of a client map
+    (``problems.client_map_arrays``; ``publish_client`` on the CPU, 4
+    keyframes and 600 landmarks each) and a 128-word vocabulary trained on
+    the CPU, moved to ``dev``."""
+    import dataclasses
+
+    from ccm_slam_tpu_torch.config import tiny_test_config
+    from ccm_slam_tpu_torch.ops import bow
+    from ccm_slam_tpu_torch.runtime import communicator as comm
+
+    m = convert.map_state_from_numpy(problems.client_map_arrays(n_kf=6, seed=3)[0], "cpu")
+    st = comm.ClientCommState.create(16, 512)
+    msgs = []
+    for _ in range(2):
+        msg, st = comm.publish_client(m, st, 0, max_kfs=4, max_mps=600)
+        msgs.append(msg)
+    vocab = bow.train_vocabulary(m.kfs.desc.reshape(-1, 32), m.kfs.feat_valid.reshape(-1),
+                                 n_words=128, iters=3, generator=torch.Generator().manual_seed(0))
+
+    def move(obj):
+        if torch.is_tensor(obj):
+            return obj.to(dev)
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name))
+                                               for f in dataclasses.fields(obj)
+                                               if torch.is_tensor(getattr(obj, f.name))
+                                               or dataclasses.is_dataclass(getattr(obj, f.name))})
+        return obj
+
+    return tiny_test_config(), [move(x) for x in msgs], move(vocab)
+
+
+def assert_maps_match(ours, ref, atol=1e-5):
+    import numpy as np
+
+    a, b = convert.map_state_to_numpy(ours), convert.map_state_to_numpy(ref)
+    for sec in ("kfs", "mps"):
+        for name, x in a[sec].items():
+            if x.dtype.kind == "f":
+                np.testing.assert_allclose(x, b[sec][name], rtol=1e-5, atol=atol, err_msg=name)
+            else:
+                np.testing.assert_array_equal(x, b[sec][name], err_msg=name)
+    for n in ("next_kf", "next_mp", "insert_counter"):
+        assert int(a[n]) == int(b[n]), n
+
+
+def test_ingest_on_card_matches_cpu():
+    """Two messages through ``Server.ingest`` on the card and on the CPU:
+    the same acks and tables, integers equal, floats to 1e-5 (the BoW
+    transform on the ``hamming_top2`` kernel)."""
+    from ccm_slam_tpu_torch.runtime.server import Server
+    from ccm_slam_tpu_torch.utils.camera import Camera
+
+    dev = card()
+    out = {}
+    for d in ("cpu", dev):
+        cfg, msgs, vocab = server_inputs(d)
+        srv = Server(cfg=cfg, cam=Camera.from_config(cfg.camera, d), vocab=vocab, n_agents=1,
+                     device=d)
+        acks = [srv.ingest(0, msg) for msg in msgs]
+        out[str(d)] = (srv, acks)
+    (c, c_acks), (g, g_acks) = out["cpu"], out[str(dev)]
+    for a, b in zip(g_acks, c_acks):
+        assert (a.ack_kf_ids.tolist(), a.ack_mp_ids.tolist(), a.weak_ack_kf_id) == (
+            b.ack_kf_ids.tolist(), b.ack_mp_ids.tolist(), b.weak_ack_kf_id)
+    assert g.agents[0].kf_table == c.agents[0].kf_table and len(c.agents[0].kf_table) == 6
+    assert g.agents[0].mp_table == c.agents[0].mp_table
+    assert_maps_match(g.maps[0], c.maps[0])
+    torch.testing.assert_close(g.matcher.db.vectors.cpu(), c.matcher.db.vectors, atol=1e-6,
+                               rtol=0)
+
+
+def test_merge_maps_on_card_matches_cpu():
+    from ccm_slam_tpu_torch.models import map_store as ms
+    from ccm_slam_tpu_torch.utils.lie import so3_exp
+
+    dev = card()
+    fa, _, _ = problems.client_map_arrays(n_kf=6, seed=3, kf_cap=32, mp_cap=1024)
+    fb, _, _ = problems.client_map_arrays(n_kf=5, seed=4)
+    R = so3_exp(torch.tensor([0.02, -0.1, 0.05]))
+    out = {}
+    for d in ("cpu", dev):
+        a, b = convert.map_state_from_numpy(fa, d), convert.map_state_from_numpy(fb, d)
+        b = ms.erase_keyframes(b, torch.arange(16, device=d) == 2)
+        out[str(d)] = ms.merge_maps(a, b, torch.tensor(1.3, device=d), R.to(d),
+                                    torch.tensor([0.4, 0.0, -0.2], device=d))
+    assert_maps_match(out[str(dev)], out["cpu"])
+
+
+def test_pack_map_msg_of_card_tensors_gives_cpu_bytes():
+    from ccm_slam_tpu_torch.runtime import wire
+
+    dev = card()
+    _, msgs_c, _ = server_inputs("cpu")
+    _, msgs_g, _ = server_inputs(dev)  # the same messages, moved to the card
+    for mc, mg in zip(msgs_c, msgs_g):
+        data = wire.pack_map_msg(mc)
+        assert mg.kfs.valid.device.type == "cuda"
+        assert wire.pack_map_msg(mg) == data
+        back = wire.unpack_map_msg(data, device=dev)
+        ref = wire.unpack_map_msg(data, device="cpu")
+        for name in ("kfs", "mps"):
+            for f, x in getattr(back, name).__dict__.items():
+                assert x.device.type == "cuda"
+                assert torch.equal(x.cpu(), getattr(getattr(ref, name), f)), (name, f)

@@ -127,7 +127,8 @@ def test_median_even_count_averages_like_jax():
 
 
 def test_scatters_with_colliding_indices_match_jax():
-    """Masked writes are adds of a delta that is 0 on masked lanes, and bool
+    """Masked writes are adds on the live lanes (the masked ones write spare
+    rows; the reference adds a delta of 0 there), and bool
     flags take monotone max/min scatters: with colliding indices both equal
     JAX's ``.at[].add`` / ``.at[].max`` / ``.at[].min`` (an ``index_put`` set
     would keep an arbitrary one of the colliding writes)."""
@@ -136,13 +137,15 @@ def test_scatters_with_colliding_indices_match_jax():
     x = np.arange(8, dtype=np.int32) * 10
     delta = np.where(mask, np.array([7, 99, 3, -99, 1, 4], np.int32), 0)
     np.testing.assert_array_equal(
-        ms._add_at(torch.as_tensor(x), (torch.as_tensor(idx),), torch.as_tensor(delta)).numpy(),
+        ms._add_at(torch.as_tensor(x), (torch.as_tensor(idx),), torch.as_tensor(delta),
+                   torch.as_tensor(mask)).numpy(),
         np.asarray(jnp.asarray(x).at[idx].add(delta)))
     u8 = np.array([250, 3, 7, 0], np.uint8)
     d8 = np.array([10, 250, 1, 0], np.uint8)  # wraps, as the reference's uint8 add does
     i8 = np.array([0, 1, 0, 3], np.int64)
     np.testing.assert_array_equal(
-        ms._add_at(torch.as_tensor(u8), (torch.as_tensor(i8),), torch.as_tensor(d8)).numpy(),
+        ms._add_at(torch.as_tensor(u8), (torch.as_tensor(i8),), torch.as_tensor(d8),
+                   torch.ones(4, dtype=torch.bool)).numpy(),
         np.asarray(jnp.asarray(u8).at[i8].add(d8)))
     flags = np.array([False, True, False, True, False, True, False, False])
     src = np.array([True, False, False, False, False, True])

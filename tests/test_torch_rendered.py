@@ -72,3 +72,45 @@ def test_torch_raycaster_matches_jax_raycaster_and_numpy_frames():
         assert diff.max() <= 1.0 and (diff > 0).mean() <= 0.005, (i, (diff > 0).mean())
     with pytest.raises(ValueError):
         tr.RenderedSequence(cam=cam, backend="opengl", **kw).render_frame(0)
+
+
+def test_frame_cache_is_shared_with_jax(tmp_path):
+    """``cache_dir``: the port and the JAX package write the same files
+    (names and bytes) for the same frames, and each reads the other's back.
+    As in the reference, a cache hit returns the stored uint8 image as
+    float32 (the render that filled the cache returned it unquantized)."""
+    import torch
+
+    kw = dict(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22))
+    cam, jcam = scaled_camera(factor=0.1), j_scaled_camera(factor=0.1)
+    ours_dir, ref_dir = tmp_path / "port", tmp_path / "jax"
+    ours = tr.RenderedSequence(cam=cam, cache_dir=str(ours_dir), **kw)
+    ref = jr.RenderedSequence(cam=jcam, backend="numpy", cache_dir=str(ref_dir), **kw)
+    fresh = {i: ours.render_frame(i) for i in (0, 6)}
+    for i in fresh:
+        ref.render_frame(i)
+
+    def files(d):
+        return sorted(str(p.relative_to(d)) for p in d.rglob("*"))
+
+    assert files(ours_dir) == files(ref_dir) and len(files(ours_dir)) == 3  # a key dir, 2 frames
+    for f in files(ours_dir):
+        if f.endswith(".npy"):
+            assert (ours_dir / f).read_bytes() == (ref_dir / f).read_bytes(), f
+    # each package reads the other's cache: the uint8 frames, not a new render
+    ours_on_ref = tr.RenderedSequence(cam=cam, cache_dir=str(ref_dir), **kw)
+    ref_on_ours = jr.RenderedSequence(cam=jcam, backend="numpy", cache_dir=str(ours_dir), **kw)
+    for i, img in fresh.items():
+        a, b = ours_on_ref.render_frame(i), ref_on_ours.render_frame(i)
+        assert a.dtype == np.float32 and b.dtype == np.float32
+        np.testing.assert_array_equal(a, img.astype(np.uint8).astype(np.float32))
+        np.testing.assert_array_equal(a, b)
+    marked = np.full(fresh[6].shape, 7, np.uint8)
+    np.save(ours_on_ref._cache_path(6), marked)  # a frame no renderer makes
+    np.save(ref_on_ours._cache_path(6), marked)
+    np.testing.assert_array_equal(ref_on_ours.render_frame(6), marked)
+    np.testing.assert_array_equal(ours_on_ref.render_frame(6), marked)
+    on_torch = tr.RenderedSequence(cam=cam, backend="torch", device="cpu",
+                                   cache_dir=str(ref_dir), **kw).render_frame(6)
+    assert isinstance(on_torch, torch.Tensor) and on_torch.dtype == torch.float32
+    np.testing.assert_array_equal(on_torch.numpy(), marked)

@@ -311,19 +311,30 @@ def top2_inputs(Q, T, dev, seed=5):
     return tuple(x.to(dev) for x in (q, qv, t, tv))
 
 
-def top2_timing(hk, args, rate, label):
+def top2_plain_rows(hk, q, qv, t, tv, rows=8192):
+    """``hamming_top2``'s plain version over blocks of ``rows`` queries (the
+    queries are independent): the same outputs, without the dense
+    [Q, T] distance matrices of a whole ingest batch at once."""
+    out = [hk.hamming_top2_plain(q[i:i + rows], qv[i:i + rows], t, tv)
+           for i in range(0, q.shape[0], rows)]
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def top2_timing(hk, args, rate, label, plain=None):
     """``hamming_top2`` (``hk`` its module) on ``args`` as ``time_table``
     reports a kernel (warm: it reads under 1 MB).  The bound: its bytes, or
     this run's valid (query, target) pairs at the tensor cores' 1-bit rate,
     ``rate`` being ``tools/mma_b1_rate.measure``'s result; ``popc_bound_ms``
     beside it reckons the same pairs at 8 popcounts each, 16 per clock per
-    SM at the largest SM clock (the bound of a popcount kernel)."""
+    SM at the largest SM clock (the bound of a popcount kernel).  ``plain``
+    is the plain version timed (``hk.hamming_top2_plain`` by default)."""
     q, qv, t, tv = args
     pairs_per_s = rate["pairs_per_s"]
     popc_per_s = POPC_PER_CLK_PER_SM * rate["sms"] * rate["max_sm_clock_mhz"] * 1e6
     ms, ms_by, n, ev, split = kernel_ms(lambda: hk.hamming_top2(q, qv, t, tv), REPS,
                                        DEVICE_KERNELS["hamming_top2"])
-    plain_ms, _ = retried_ms(lambda: hk.hamming_top2_plain(q, qv, t, tv), 5)
+    plain = hk.hamming_top2_plain if plain is None else plain
+    plain_ms, _ = retried_ms(lambda: plain(q, qv, t, tv), 5)
     pairs = int(qv.sum()) * int(tv.sum())
     n_bytes = nbytes(q, qv, t, tv, torch.empty(3, q.shape[0], dtype=torch.int32))
     bound_ms, bound_by = bound(n_bytes, pairs, pairs_per_s)
