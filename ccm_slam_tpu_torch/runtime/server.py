@@ -26,9 +26,11 @@ the vicinity search at the agent's own keyframe of that id
 (``server.py:450``); ``pack_vicinity`` returns messages with ``kfs=None``,
 whose ``empty`` raises.
 
-Not ported here: the landmark-sharded GBA (``mesh``, ROADMAP queue 1 item
-4) and map save/load (``io/checkpoint.py``, queue 1 item 5) raise
-``NotImplementedError``.
+With ``mesh`` (``parallel.dist_ba.make_mesh``) every GBA is the
+landmark-sharded solve: each rank of the mesh runs the same server on the
+same messages, solves its block of landmark rows and gathers the whole map
+back.  ``save_map`` / ``load_map`` write and read ``io/checkpoint.py``'s
+``.npz``, which the JAX package reads and writes too.
 
 ``stats`` counts ingests, the ingests' BoW batches and each GBA's
 iterations, camera slots and statistics flag (the matcher and the loop
@@ -46,9 +48,11 @@ import torch
 
 from ..config import SystemConfig
 from ..device import resolve_device
+from ..io import checkpoint as ckpt
 from ..models import keyframe_db as kdb
 from ..models import map_store as ms
 from ..ops import bow
+from ..parallel import dist_ba
 from ..solvers import ba
 from ..utils.camera import Camera
 from ..utils.lie import SE3, Sim3
@@ -103,14 +107,10 @@ class Server:
     quiescence_steps: int = 30
     gba_chunk_iters: int = 2
     gba_total_iters: int = 20
-    mesh: object = None  # landmark-sharded GBA: not ported (ROADMAP queue 1 item 4)
+    mesh: object = None  # parallel.dist_ba.Mesh: landmark-sharded GBA
     stats: dict = field(default_factory=lambda: {"ingests": 0, "bow_batches": 0, "gba": []})
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Server(mesh=...): the landmark-sharded GBA (parallel/dist_ba.py) is not "
-                "ported yet: ROADMAP.md queue 1 item 4")
         self.device = resolve_device(self.device)
         cap = self.cfg.capacity
         kf0 = min(cap.server_max_kfs, 64)
@@ -304,7 +304,9 @@ class Server:
         chunks land on the monolithic optimum; the state is dropped on every
         mutation and on arena growth.  ``block=False`` reads nothing on the
         host: the cost stays on the device in ``gba_last_cost`` (read it
-        with ``gba_cost``)."""
+        with ``gba_cost``).  With ``mesh`` the solve is landmark-sharded
+        (``dist_ba_solve``, no inlier statistics) and every rank gathers the
+        whole map back."""
         m = self.maps[slot]
         alive = m.kfs.valid & ~m.kfs.bad
         order = torch.where(alive, m.kfs.insert_order, ms._I32_MAX)
@@ -315,9 +317,15 @@ class Server:
         state = self.gba_state.get(slot) if carry else None
         if state is not None and state[1].shape[0] != prob.R.shape[0]:
             state = None  # the arena grew between chunks
-        R, t, X, cost, _, new_state = ba.ba_solve(prob, iters=iters, with_stats=with_stats,
-                                                  state=state, return_state=True)
-        self.stats["gba"].append((iters, int(prob.R.shape[0]), with_stats))
+        if self.mesh is not None:
+            R, t, X, cost, new_state = dist_ba.dist_ba_solve(
+                dist_ba.shard_problem(prob, self.mesh), self.mesh, iters=iters, state=state,
+                return_state=True)
+            X = dist_ba.gather_points(X, self.mesh)
+        else:
+            R, t, X, cost, _, new_state = ba.ba_solve(prob, iters=iters, with_stats=with_stats,
+                                                      state=state, return_state=True)
+        self.stats["gba"].append((iters, int(prob.R.shape[0]), with_stats and self.mesh is None))
         if carry:
             self.gba_state[slot] = new_state
         else:
@@ -432,12 +440,35 @@ class Server:
     # ------------------------------------------------------------- load / save
 
     def save_map(self, slot: int, path: str):
-        raise NotImplementedError(
-            "Server.save_map: io/checkpoint.py is not ported yet: ROADMAP.md queue 1 item 5")
+        """Persist one server map (the ``ccmslam_savemap`` service)."""
+        ckpt.save_map(path, self.maps[slot])
 
     def load_map(self, slot: int, path: str):
-        raise NotImplementedError(
-            "Server.load_map: io/checkpoint.py is not ported yet: ROADMAP.md queue 1 item 5")
+        """Load a saved map into a slot (the reference's LoadMap flow): ids
+        remapped to client 0, alive keyframes registered in the slot's loop
+        finder and the matcher (their databases grown to the map's keyframe
+        capacity where it is larger), and agent 0's id tables pointed at the
+        loaded map, so its re-sent entities become pose updates (the
+        reference disables that agent's communication instead,
+        Communicator.cpp:51).  The slot's GBA carry is dropped."""
+        m = ckpt.remap_to_client(ckpt.load_map(path, self.device), client_id=0)
+        self.maps[slot] = m
+        finder = self.finders[slot]
+        finder.db = kdb.grow(finder.db, m.kfs.capacity)
+        self.matcher.grow(m.kfs.capacity)
+        ag = self.agents[0]
+        ag.map_slot = slot
+        alive = (m.kfs.valid & ~m.kfs.bad).cpu().numpy()
+        ids = m.kfs.kf_id.cpu().numpy()
+        for k in np.where(alive)[0]:
+            ag.kf_table[int(ids[k])] = int(k)
+            finder.insert_keyframe(m, int(k))
+            self.matcher.insert_keyframe(slot, m, int(k))
+        mp_alive = np.where((m.mps.valid & ~m.mps.bad).cpu().numpy())[0]
+        ag.mp_table.update(zip(m.mps.mp_id.cpu().numpy()[mp_alive].tolist(), mp_alive.tolist()))
+        ag.ing_tables = None  # rebuilt from the dicts at the next ingest
+        self.gba_state.pop(slot, None)
+        return m
 
     # ---------------------------------------------------------------- queries
 

@@ -190,30 +190,32 @@ def _damp(M, lam):
     return M + (lam * torch.diagonal(M, dim1=-2, dim2=-1) + 1e-8)[..., :, None] * _eye(n, M)
 
 
+def _schur_system(U_d, Vinv, W, g_c, g_p, ci):
+    """The dense reduced camera system of damped blocks:
+    (S [6C,6C], b [C,6]) = (U_d - W Vinv W^T, g_c - W Vinv g_p), through the
+    reference's one-hot contraction to a dense coupling operator [C,P,6,3]."""
+    C = U_d.shape[0]
+    onehot = torch.nn.functional.one_hot(ci.long(), C).to(U_d.dtype)  # [P,K,C]
+    Wfull = torch.einsum("pkc,pkij->cpij", onehot, W)
+    WV = torch.einsum("cpij,pjk->cpik", Wfull, Vinv)  # [C,P,6,3]
+    S = -torch.einsum("cpik,dpjk->cidj", WV, Wfull)   # [C,6,C,6]
+    ar = torch.arange(C, device=U_d.device)
+    S[ar, :, ar, :] += U_d
+    b = g_c - torch.einsum("cpik,pk->ci", WV, g_p)
+    return S.reshape(C * 6, C * 6), b
+
+
 def _solve_schur(prob: BAProblem, U, V, W, g_c, g_p, ci, lam):
     """One damped dense Schur solve: returns (delta_c [C,6], delta_p [P,3])."""
     C = U.shape[0]
-    U_d = _damp(U, lam)
     Vinv = inv3x3(_damp(V, lam))  # [P,3,3]
-
-    # dense coupling operator [C,P,6,3] built by one-hot contraction
-    onehot = torch.nn.functional.one_hot(ci.long(), C).to(U.dtype)  # [P,K,C]
-    Wfull = torch.einsum("pkc,pkij->cpij", onehot, W)
-
-    # S = U_d - W V^-1 W^T
-    WV = torch.einsum("cpij,pjk->cpik", Wfull, Vinv)  # [C,P,6,3]
-    S = -torch.einsum("cpik,dpjk->cidj", WV, Wfull)   # [C,6,C,6]
-    ar = torch.arange(C, device=U.device)
-    S[ar, :, ar, :] += U_d
-    S = S.reshape(C * 6, C * 6)
+    S, b = _schur_system(_damp(U, lam), Vinv, W, g_c, g_p, ci)
     # inactive cameras (fixed or unobserved): unit diagonal so the solve is well-posed
     diag_mag = torch.diagonal(S)
     inactive = torch.repeat_interleave(prob.cam_fixed, 6) | (diag_mag <= 1e-7)
     eye = _eye(C * 6, S)
     S = torch.where(torch.diag_embed(inactive), eye, S)
     S = S + 1e-8 * eye
-
-    b = g_c - torch.einsum("cpik,pk->ci", WV, g_p)  # [C,6]
     b = torch.where(inactive.reshape(C, 6), 0.0, b)
 
     # S is SPD after damping; a failed factorization gives a non-finite step
@@ -222,16 +224,20 @@ def _solve_schur(prob: BAProblem, U, V, W, g_c, g_p, ci, lam):
     delta_c = torch.cholesky_solve(b.reshape(-1, 1), L).reshape(C, 6)
     delta_c = torch.where(info == 0, delta_c, float("nan"))
     delta_c = torch.where(prob.cam_fixed[:, None], 0.0, delta_c)
+    return delta_c, _back_substitute(prob, Vinv, W, g_p, delta_c, ci)
 
-    # back-substitute landmarks: delta_p = Vinv (g_p - sum_k W^T delta_c[cam])
+
+def _back_substitute(prob: BAProblem, Vinv, W, g_p, delta_c, ci):
+    """The dense branch's landmark step, the reference's gather form:
+    delta_p = Vinv (g_p - sum_k W_pk^T delta_c[ci_pk]) [P,3], 0 on invalid
+    landmarks."""
     Wt_dc = torch.einsum("pkij,pki->pj", W, delta_c[ci.long()])
     delta_p = torch.einsum("pij,pj->pi", Vinv, g_p - Wt_dc)
-    delta_p = torch.where(prob.point_valid[:, None], delta_p, 0.0)
-    return delta_c, delta_p
+    return torch.where(prob.point_valid[:, None], delta_p, 0.0)
 
 
 def _solve_schur_pcg(prob: BAProblem, U, V, W, g_c, g_p, csr, lam, x0,
-                     cg_iters: int = 16, cg_rel_tol: float = 1e-2):
+                     cg_iters: int = 16, cg_rel_tol: float = 1e-2, sum_cams=None):
     """Matrix-free Schur solve for large camera counts.
 
         (S v)_c = U_d,c v_c - sum_{p,k2} 1[ci_pk2=c] W_pk2 V_p^-1
@@ -242,7 +248,12 @@ def _solve_schur_pcg(prob: BAProblem, U, V, W, g_c, g_p, csr, lam, x0,
     inexact-Newton stop at ``cg_rel_tol`` relative residual (LM's exact-cost
     accept gate absorbs the truncation).  The stopping test reads the
     residual on the host: one sync per CG step.
+
+    ``sum_cams`` (the landmark-sharded solve, ``parallel.dist_ba``) sums
+    the off-diagonal product and the right-hand side's correction, each a
+    [C,6] camera vector of this shard's observations, over the shards.
     """
+    sum_cams = sum_cams or (lambda x: x)
     U_d = _damp(U, lam)
     Vinv = inv3x3(_damp(V, lam))
     active = ~prob.cam_fixed & (torch.diagonal(U_d, dim1=-2, dim2=-1).sum(-1) > 1e-6)
@@ -252,10 +263,10 @@ def _solve_schur_pcg(prob: BAProblem, U, V, W, g_c, g_p, csr, lam, x0,
 
     def S_mv(v):
         v = torch.where(act, v, 0.0)
-        out = torch.einsum("cij,cj->ci", U_d, v) - off_mv(v)
+        out = torch.einsum("cij,cj->ci", U_d, v) - sum_cams(off_mv(v))
         return torch.where(act, out, v)
 
-    b = g_c - rhs_op(torch.einsum("pij,pj->pi", Vinv, g_p).contiguous())
+    b = g_c - sum_cams(rhs_op(torch.einsum("pij,pj->pi", Vinv, g_p).contiguous()))
     b = torch.where(act, b, 0.0)
 
     Uinv = inv6x6_spd(U_d + 1e-6 * _eye(6, U_d))

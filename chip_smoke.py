@@ -84,11 +84,20 @@ that path's own expected counts after it:
      ``server_want``; walls per frame, ingest and mapping step, of the
      merging ``try_match``, its ``correct_loop`` and the merge and final
      GBAs (device time, CG steps), and the merging ``try_match`` replayed
-     under the profiler.
+     under the profiler;
+ 14. the landmark-sharded GBA (``parallel.dist_ba``) at world size 1 over
+     NCCL: ``__graft_entry__.dryrun_multichip``'s problem (C=256, P=32,768,
+     K=4, PCG) and ``scripts/dist_worker.py``'s (C=64, P=4,096, K=4,
+     dense), each in 3 chunks of 4 iterations against one of 12 and
+     against ``ba_solve``, launches held exactly; wall per LM iteration
+     beside ``ba_solve``'s and the device busy share; then phase 13's merged
+     slot solved again with ``Server.mesh`` set, held to the unsharded
+     solve's cost and to phase 13's ATE gates.
 
 It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
-``{"kernels": [...]}`` (each kernel's launches on its path, error against
+``{"kernels": [...]}`` (each kernel's launches on its path and in phase
+14 (``launches_sharded_gba``), error against
 its plain version, device time, plain time, bound and library yardstick),
 and last ``{"ok": true, "device": {...}}``.  Kernel times are the
 profiler's device time per wrapper call (``tools/kernel_timing.py``);
@@ -120,6 +129,7 @@ from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_ke
 from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
 from ccm_slam_tpu_torch.profile_gba import profile_gba
 from ccm_slam_tpu_torch.ops import bow
+from ccm_slam_tpu_torch.parallel import dist_ba
 from ccm_slam_tpu_torch.runtime import communicator as comm
 from ccm_slam_tpu_torch.runtime import loop_closing, map_matching, mapping, tracking, wire
 from ccm_slam_tpu_torch.runtime.frame import build_frame
@@ -1243,6 +1253,23 @@ def server_want(srv, trackers):
     return want
 
 
+def merge_ates(srv, seqs):
+    """Each agent's (keyframe ATE, span, gate, keyframes) on the server's
+    map: Sim(3)-aligned against ground truth, gated at max(0.02 span + 0.05,
+    2 x the JAX package's)."""
+    ates = []
+    for i in (0, 1):
+        ts, R, t = srv.trajectory(i)
+        est = camera_centers(torch.as_tensor(R), torch.as_tensor(t)).numpy()
+        gt_ts, gt_pos, _ = seqs[i].ground_truth()
+        gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
+        rmse, _ = ate_rmse(est, gt, align="sim3")
+        span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        gate = max(0.02 * span + 0.05, 2.0 * JAX_MERGE_ATE_M[i])
+        ates.append((rmse, span, gate, len(ts)))
+    return ates
+
+
 def check_two_agent_merge(dev, smi):
     """Phase 13: the drive loop of tests/test_rendered_merge.py at 752x480 --
     two agents over overlapping corridor spans, each publishing every 4th
@@ -1250,7 +1277,9 @@ def check_two_agent_merge(dev, smi):
     ``mapping_step`` per new keyframe and ``idle_step`` every step, then
     ``quiescence_steps + 2`` more; counted.  Gated on the merge (both agents
     in one slot), each agent's keyframe ATE (max(0.02 span + 0.05, 2 x the
-    JAX package's)) and the fused map's structure.  Returns the counts."""
+    JAX package's)) and the fused map's structure.  Returns the counts, the
+    server, the two sequences and {slot: (map, map)}: each slot's map at the
+    entry and at the exit of its last 20-iteration GBA."""
     cfg = config.rendered_ci_config(factor=1.0)
     cfg = cfg.replace(n_agents=2, placerec=dataclasses.replace(
         cfg.placerec, start_map_matching_after_kf=5))
@@ -1273,7 +1302,7 @@ def check_two_agent_merge(dev, smi):
                               (Server, "mapping_step", "mapping_step"),
                               (map_matching, "correct_loop", "the merge's correct_loop")):
         stages.wrap(owner, attr, name)
-    merge, gbas, frame_walls = {}, [], []
+    merge, gbas, frame_walls, last_gba = {}, [], [], {}
     try_match, run_gba = srv.matcher.try_match, srv._run_gba
     step_now = [0]
 
@@ -1297,7 +1326,9 @@ def check_two_agent_merge(dev, smi):
         if carry:
             return run_gba(slot, iters, with_stats, carry, block)
         off0 = bk.launch_counts()["schur_off"]
+        entry = srv.maps[slot]
         cost, device, wall = profiled(lambda: run_gba(slot, iters, with_stats, carry, block))
+        last_gba[slot] = (entry, srv.maps[slot])
         busy = sum(e.self_device_time_total for e in device) / 1e3
         label = "merge GBA" if merge and not any(g[0] == "merge GBA" for g in gbas) \
             else "final GBA"
@@ -1350,16 +1381,7 @@ def check_two_agent_merge(dev, smi):
     slot = srv.agents[0].map_slot
     shared = srv.agents[1].map_slot == slot and len(srv.maps) == 1
     structure = ms.check_structure(srv.maps[slot])
-    ates = []
-    for i in (0, 1):
-        ts, R, t = srv.trajectory(i)
-        est = camera_centers(torch.as_tensor(R), torch.as_tensor(t)).numpy()
-        gt_ts, gt_pos, _ = seqs[i].ground_truth()
-        gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
-        rmse, _ = ate_rmse(est, gt, align="sim3")
-        span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
-        gate = max(0.02 * span + 0.05, 2.0 * JAX_MERGE_ATE_M[i])
-        ates.append((rmse, span, gate, len(ts)))
+    ates = merge_ates(srv, seqs)
     ok = (bool(merge) and shared and structure == []
           and all(rmse < gate for rmse, _, gate, _ in ates))
     log(f"  frames tracked: agent 0 {tracked[0]}/{MERGE_FRAMES}, agent 1 {tracked[1]}/"
@@ -1401,6 +1423,180 @@ def check_two_agent_merge(dev, smi):
         raise AssertionError("the merging try_match did not merge again on its replay")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.key[:70]:<70} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
+    del srv._run_gba, srv.matcher.try_match  # phase 13's tracing wrappers
+    return counts, srv, seqs, last_gba
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the landmark-sharded GBA (parallel/dist_ba.py) at world size 1
+# over NCCL.
+# ---------------------------------------------------------------------------
+
+
+def dist_want(iters, calls, pcg):
+    """The launches of ``dist_ba_solve``: per call one cost of the entry
+    state; per LM iteration one normal_blocks and one trial cost; on the
+    PCG branch also one rhs, one wtv (back-substitution) and one off for the
+    initial residual plus one per CG step (at most CG_ITERS; the callers
+    hold the CG steps, ``schur_off`` - iters, to ``ba_solve``'s).  The dense
+    branch back-substitutes by the reference's gather, as ``ba_solve`` does:
+    no wtv."""
+    want = dict(reproj_cost=iters + calls, normal_blocks=iters)
+    if pcg:
+        want.update(schur_rhs=iters, schur_wtv=iters,
+                    schur_off=(iters, iters * (CG_ITERS + 1)))
+    return want
+
+
+def cg_steps(counts, iters):
+    """CG steps of a solve of ``iters`` LM iterations, from its launches."""
+    return counts["schur_off"] - iters if counts["schur_off"] else 0
+
+
+def sharded_solve(mesh, prob, iters, chunks):
+    """``dist_ba_solve`` over ``chunks`` equal chunks carrying the state,
+    ending in a sync; returns (R, t, X, cost)."""
+    p, state = dist_ba.shard_problem(prob, mesh), None
+    for _ in range(chunks):
+        R, t, X, cost, state = dist_ba.dist_ba_solve(p, mesh, iters=iters // chunks,
+                                                     state=state, return_state=True)
+        p = p.replace(R=R, t=t, X=X)
+    torch.cuda.synchronize()
+    return R, t, dist_ba.gather_points(X, mesh), cost
+
+
+def wall_ms_per_iter(fn, iters, runs=3):
+    """Median wall ms per LM iteration of ``runs`` calls of ``fn``, each
+    ending in a sync."""
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / iters)
+    return statistics.median(walls)
+
+
+def check_sharded_gba(mesh, label, arr, smi, iters=12, chunks=3):
+    """Phase 14 (a) and (b): the sharded solve in ``chunks`` chunks against
+    one monolithic sharded solve (cost within 1e-5 relative) and the port's
+    ``ba_solve`` (cost within 5% + 1e-3, camera centres within 5e-3,
+    ``dryrun_multichip``'s bounds), converged below 0.05x the initial cost;
+    launches held to ``dist_want``, the CG steps of all three equal; wall
+    per LM iteration beside ``ba_solve``'s and the sharded solve's device
+    busy share.  Returns the chunked solve's launch counts."""
+    prob = convert.ba_problem_from_numpy(arr, mesh.device)
+    C = prob.R.shape[0]
+    pcg = C > ba.pcg_min_c()
+    cost0 = float(ba._cost(prob, prob.R, prob.t, prob.X, HUBER))
+    out_c, counts = counted(f"{label}: sharded, {chunks} chunks x {iters // chunks}",
+                            lambda: sharded_solve(mesh, prob, iters, chunks),
+                            dist_want(iters, chunks, pcg))
+    out_m, counts_m = counted(f"{label}: sharded, monolithic {iters}",
+                              lambda: sharded_solve(mesh, prob, iters, 1),
+                              dist_want(iters, 1, pcg))
+    single, counts_s = counted(f"{label}: ba_solve {iters}",
+                               lambda: ba.ba_solve(prob, iters=iters),
+                               solve_launches(iters, pcg=pcg))
+    cg = [cg_steps(c, iters) for c in (counts, counts_m, counts_s)]
+    cost_c, cost_m, cost_s = float(out_c[3]), float(out_m[3]), float(single[3])
+    err = float((centres(out_c[0], out_c[1]) - centres(single[0], single[1]))
+                .norm(dim=-1).max())
+    rel = abs(cost_c - cost_m) / cost_m
+    ok = (np.isfinite(cost_c) and cost_c < 0.05 * cost0
+          and abs(cost_c - cost_s) <= 0.05 * cost_s + 1e-3 and err < 5e-3
+          and rel <= 1e-5 and cg[0] == cg[1] == cg[2])
+    log(f"  {label}: cost {cost0:.3f} -> sharded {cost_c:.4f} ({cost_c / cost0:.5f}x, gate "
+        f"0.05x), monolithic {cost_m:.4f} (rel diff {rel:.2e}, tol 1e-5), ba_solve "
+        f"{cost_s:.4f} (tol 0.05*cost+1e-3), centre err {err:.2e} (tol 5e-3); CG steps "
+        f"{cg[0]} chunked, {cg[1]} monolithic, {cg[2]} ba_solve (equal)  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the sharded GBA failed its gates")
+    ms_dist = wall_ms_per_iter(lambda: sharded_solve(mesh, prob, iters, 1), iters)
+    ms_single = wall_ms_per_iter(lambda: ba.ba_solve(prob, iters=iters), iters)
+    _, device, wall = profiled(lambda: sharded_solve(mesh, prob, iters, 1))
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    log(f"[times] {label}, {smi}: wall per LM iteration (median of 3 solves of {iters}) "
+        f"sharded {ms_dist:.3f} ms, ba_solve {ms_single:.3f} ms; the sharded solve under "
+        f"the profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+        f"{sum(e.count for e in device)} device kernels, the port's CUDA kernels "
+        f"{port_kernels_ms(device):.3f} ms")
+    return counts
+
+
+def collective_timings(mesh, smi, C=256, reps=200):
+    """Wall us of one rank-order sum of a [C,6] camera vector (what each CG
+    step of the sharded PCG adds), of its all-gather alone and, as a
+    yardstick the port does not use, of one all-reduce: medians of ``reps``
+    calls after 20 warm-up calls, each ending in a sync."""
+    v = torch.ones(C, 6, device=mesh.device)
+    for name, fn in (("sum_ranks", lambda: dist_ba.sum_ranks(v, mesh)),
+                     ("all-gather alone", lambda: dist_ba._all_gather(v, mesh)),
+                     ("all-reduce (yardstick)",
+                      lambda: torch.distributed.all_reduce(v, group=mesh.group))):
+        for _ in range(20):
+            fn()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e6)
+        log(f"[times] {name} of a [{C},6] vector over {mesh.backend} (world size "
+            f"{mesh.world_size}), {smi}: median {statistics.median(walls):.1f} us, min "
+            f"{min(walls):.1f} us ({reps} calls, each ending in a sync)")
+
+
+def check_merged_resolve(srv, last_gba, seqs, mesh, smi):
+    """Phase 14 (c): phase 13's final GBA of the merged slot solved again
+    from the map it started from, unsharded and then with ``srv.mesh`` set
+    (20 iterations each): the sharded cost below the entry cost (a GBA of no
+    iteration), within 5% + 1e-3 of the unsharded one, the same CG steps,
+    and phase 13's ATE gates on the sharded result.  Returns the sharded
+    solve's launch counts."""
+    slot = srv.agents[0].map_slot
+    m_entry, m_exit = last_gba[slot]
+    if srv.maps[slot] is not m_exit:
+        raise AssertionError("the merged slot changed after its final GBA")
+    C = m_entry.kfs.capacity
+    pcg = C > ba.pcg_min_c()
+    iters = srv.gba_total_iters
+    srv.maps[slot] = m_entry
+    cost_in = srv._run_gba(slot, 0)
+    srv.maps[slot] = m_entry
+    t0 = time.perf_counter()
+    cost_u, counts_u = counted("merged slot, unsharded GBA", lambda: srv._run_gba(slot, iters),
+                               solve_launches(iters, pcg=pcg))
+    wall_u = (time.perf_counter() - t0) * 1e3
+    same = bool(torch.equal(srv.maps[slot].kfs.t_cw, m_exit.kfs.t_cw)
+                and torch.equal(srv.maps[slot].mps.pos, m_exit.mps.pos))
+    srv.maps[slot] = m_entry
+    srv.mesh = mesh
+    t0 = time.perf_counter()
+    cost_s, counts = counted("merged slot, sharded GBA", lambda: srv._run_gba(slot, iters),
+                             dist_want(iters, 1, pcg))
+    wall_s = (time.perf_counter() - t0) * 1e3
+    cg_u, cg_s = cg_steps(counts_u, iters), cg_steps(counts, iters)
+    ates = merge_ates(srv, seqs)
+    ok = (cost_s < cost_in and abs(cost_s - cost_u) <= 0.05 * cost_u + 1e-3 and cg_s == cg_u
+          and all(rmse < gate for rmse, _, gate, _ in ates))
+    log(f"  merged slot ({C} keyframe slots, P={m_entry.mps.capacity}, "
+        f"{'PCG' if pcg else 'dense'}) from phase 13's final-GBA entry map, {iters} "
+        f"iterations: entry cost {cost_in:.4f}; unsharded {cost_u:.4f} "
+        f"({cost_u / cost_in:.5f}x; the map phase 13's final GBA left: {same}), sharded "
+        f"{cost_s:.4f} ({cost_s / cost_in:.5f}x, gate < 1x and within 0.05*cost+1e-3 of "
+        f"unsharded); CG steps {cg_s} sharded, {cg_u} "
+        f"unsharded (equal); wall {wall_u:.3f} ms unsharded, {wall_s:.3f} ms sharded ({smi})  "
+        f"{'ok' if ok else 'FAIL'}")
+    for i, (rmse, span, gate, n) in enumerate(ates):
+        log(f"  agent {i} after the sharded GBA: {n} keyframes, keyframe ATE {rmse:.4f} m over "
+            f"{span:.3f} m (gate {gate:.4f} m)  {'ok' if rmse < gate else 'FAIL'}")
+    srv.mesh = None
+    if not ok:
+        raise AssertionError("the merged slot's sharded GBA failed its gates")
     return counts
 
 
@@ -1661,9 +1857,31 @@ def main() -> int:
     # -- phase 13: two agents merge on the server ---------------------------------
     log("[server] two rendered agents at 752x480 (rendered_ci_config(1.0), vocab32k) -> "
         "publish -> wire -> Server.ingest / mapping_step / idle_step -> merge -> GBA")
-    merge_counts = check_two_agent_merge(dev, smi)
+    merge_counts, merge_srv, merge_seqs, merge_gbas = check_two_agent_merge(dev, smi)
     log(f"  phase-13 launches: {json.dumps(merge_counts)}")
     phase_done(13)
+
+    # -- phase 14: the landmark-sharded GBA, world size 1 over NCCL -------------
+    mesh = dist_ba.make_mesh(dev)
+    log(f"[sharded] dist_ba_solve on a {mesh.backend} group of {mesh.world_size} "
+        f"({mesh.device}); the problems of __graft_entry__.dryrun_multichip and "
+        f"scripts/dist_worker.py, then phase 13's merged slot")
+    dist_counts = {}
+
+    def add_counts(counts):
+        for name, n in counts.items():
+            dist_counts[name] = dist_counts.get(name, 0) + n
+
+    add_counts(check_sharded_gba(mesh, "dryrun_multichip C=256 P=32768 K=4 (PCG)",
+                                 problems.arc_problem_arrays(C=256, P=32768, K=4), smi))
+    add_counts(check_sharded_gba(mesh, "dist_worker C=64 P=4096 K=4 (dense)",
+                                 problems.arc_problem_arrays(C=64, P=4096, K=4), smi))
+    add_counts(check_merged_resolve(merge_srv, merge_gbas, merge_seqs, mesh, smi))
+    collective_timings(mesh, smi)
+    log(f"  phase-14 launches (the chunked solves and the merged slot's): "
+        f"{json.dumps(dist_counts)}")
+    torch.distributed.destroy_process_group()
+    phase_done(14)
 
     # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
     # its windows miscounted, the CUDA-event time
@@ -1677,6 +1895,8 @@ def main() -> int:
                                 ("schur_matvec", f"{PALLAS}:496", matvec_err)):
         kernels.append(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                             launches=prof_counts[name], max_abs_err=err, **new_times[name]))
+    for k in kernels:  # phase 14's launches beside the path's
+        k["launches_sharded_gba"] = dist_counts.get(k["name"], 0)
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
