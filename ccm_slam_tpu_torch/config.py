@@ -165,6 +165,17 @@ class SystemConfig:
 
 DEFAULT_CONFIG = SystemConfig()
 
+# KITTI odometry cam0 (reference conf/kitti_mono.yaml: rectified grayscale,
+# no distortion, 10 fps, identity T_SC)
+KITTI_CAMERA = CameraConfig(
+    width=1241, height=376,
+    fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+    k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
+    fps=10.0,
+    t_sc=((1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0),
+          (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0)),
+)
+
 
 def scaled_camera(base: Optional[CameraConfig] = None, factor: float = 0.5) -> CameraConfig:
     """The EuRoC camera at a reduced resolution: focal lengths and principal
@@ -220,3 +231,30 @@ def tiny_test_config() -> SystemConfig:
             covis_neighbors=8,
         ),
     )
+
+
+def show_params(cfg: SystemConfig = None, file=None) -> str:
+    """The whole parameter tree as text (the reference's ``params::ShowParams``
+    start-up dump, cslam/src/config.cpp), one ``[section]`` per part of the
+    configuration and one ``name = value`` line per field (4x4 matrices
+    shown as ``<4x4 matrix>``).  Returns the string; also prints it to
+    ``file`` when given (e.g. sys.stdout)."""
+    cfg = cfg or DEFAULT_CONFIG
+    lines = ["ccm_slam_tpu_torch parameters"]
+    for section_name in (
+        "system", "extractor", "tracking", "mapping", "comm", "placerec",
+        "opt", "capacity", "camera",
+    ):
+        section = getattr(cfg, section_name, None)
+        if section is None:
+            continue
+        lines.append(f"[{section_name}]")
+        for f in dataclasses.fields(section):
+            v = getattr(section, f.name)
+            if isinstance(v, tuple) and v and isinstance(v[0], tuple):
+                v = "<4x4 matrix>"
+            lines.append(f"  {f.name} = {v}")
+    out = "\n".join(lines)
+    if file is not None:
+        print(out, file=file)
+    return out

@@ -326,14 +326,31 @@ def add_keyframes(m: MapState, kf_ids, client_ids, timestamps, R_cw, t_cw, xy, d
     Masked rows write the last slot as exact no-ops (the arena scatter
     discipline).  Reverse observations are registered for all rows at once:
     per-landmark ranks put concurrent observations of one landmark from
-    several new keyframes into distinct slots.  Returns (map, arena_idx [B],
-    -1 for masked rows)."""
+    several new keyframes into distinct slots.  Links past a landmark's last
+    free observation slot are dropped on both sides (a declared divergence:
+    the reference clamps them onto the last slot, where they add up, and
+    keeps their forward links).  Returns (map, arena_idx [B], -1 for masked
+    rows)."""
     B = kf_ids.shape[0]
     K = m.kfs.capacity
     dev = kf_ids.device
     sel = new_valid
     offs = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
     idx = torch.where(sel, m.next_kf + offs, K - 1).clamp(0, K - 1).long()
+
+    # reverse observations over the flattened [B*N] hits, ranked per landmark
+    mps = m.mps
+    N = mp_assoc.shape[1]
+    flat_mp = torch.where(sel[:, None], mp_assoc, NO_MP).reshape(-1)
+    has = flat_mp >= 0
+    target = torch.where(has, flat_mp, 0).long()
+    skey = torch.where(has, target, 2**30)
+    order = torch.argsort(skey, stable=True)
+    sorted_t = skey[order]
+    first = torch.searchsorted(sorted_t, sorted_t, side="left")
+    rank = torch.empty_like(order).index_put((order,), torch.arange(B * N, device=dev) - first)
+    fits = has & (mps.obs_n[target] + rank < mps.max_obs)
+    mp_assoc = torch.where((has & ~fits).reshape(B, N), NO_MP, mp_assoc)
     kfs = m.kfs
 
     def upd(field, val):
@@ -361,24 +378,13 @@ def add_keyframes(m: MapState, kf_ids, client_ids, timestamps, R_cw, t_cw, xy, d
     m = m.replace(kfs=kfs, next_kf=(m.next_kf + n_new).to(torch.int32),
                   insert_counter=(m.insert_counter + n_new).to(torch.int32))
 
-    # reverse observations over the flattened [B*N] hits, ranked per landmark
-    mps = m.mps
-    N = mp_assoc.shape[1]
-    flat_mp = torch.where(sel[:, None], mp_assoc, NO_MP).reshape(-1)
-    has = flat_mp >= 0
-    target = torch.where(has, flat_mp, 0).long()
-    skey = torch.where(has, target, 2**30)
-    order = torch.argsort(skey, stable=True)
-    sorted_t = skey[order]
-    first = torch.searchsorted(sorted_t, sorted_t, side="left")
-    rank = torch.empty_like(order).index_put((order,), torch.arange(B * N, device=dev) - first)
     slot = (mps.obs_n[target] + rank).clamp(0, mps.max_obs - 1)
     kf_of = idx[:, None].expand(B, N).reshape(-1)
     feat_of = torch.arange(N, device=dev)[None, :].expand(B, N).reshape(-1)
-    obs_kf = _add_at(mps.obs_kf, (target, slot), kf_of - mps.obs_kf[target, slot], has)
+    obs_kf = _add_at(mps.obs_kf, (target, slot), kf_of - mps.obs_kf[target, slot], fits)
     obs_feat = _add_at(mps.obs_feat, (target, slot),
-                            feat_of - mps.obs_feat[target, slot], has)
-    obs_n = _add_at(mps.obs_n, (target,), torch.ones_like(target), has)
+                            feat_of - mps.obs_feat[target, slot], fits)
+    obs_n = _add_at(mps.obs_n, (target,), torch.ones_like(target), fits)
     obs_n = torch.clamp(obs_n, max=mps.max_obs)
     m = m.replace(mps=mps.replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_n=obs_n))
     return m, torch.where(sel, idx, -1).to(torch.int32)

@@ -90,13 +90,24 @@ def train_vocabulary(descs, valid, n_words: int = 1024, iters: int = 8, perm=Non
     """Binary k-medians over a descriptor sample: descs [N,32] uint8, valid
     [N] bool.  ``perm`` [n_words]: the descriptors that seed the centroids
     (else drawn from ``generator`` in proportion to ``valid``, with
-    replacement only when N < n_words).  Clusters left empty keep their
+    replacement only when N < n_words; with fewer valid descriptors than
+    words, all valid ones and then invalid ones in index order).  Clusters left empty keep their
     centroid; idf comes from the last assignment's word frequencies."""
     N = descs.shape[0]
     dev = descs.device
     if perm is None:
-        p = valid.to(torch.float32) / torch.clamp(torch.sum(valid), min=1)
-        perm = torch.multinomial(p, n_words, replacement=N < n_words, generator=generator)
+        n_valid = int(torch.sum(valid))
+        if N >= n_words > n_valid:
+            # fewer valid descriptors than words (one frame's features): every
+            # valid one in random order, then the invalid ones in index order,
+            # as jax.random.choice without replacement orders them
+            idx = torch.arange(N, device=dev)
+            live = idx[valid]
+            live = live[torch.randperm(n_valid, generator=generator, device=dev)]
+            perm = torch.cat([live, idx[~valid]])[:n_words]
+        else:
+            p = valid.to(torch.float32) / torch.clamp(torch.sum(valid), min=1)
+            perm = torch.multinomial(p, n_words, replacement=N < n_words, generator=generator)
     words = descs[perm.long()]
     counts = torch.zeros(n_words, dtype=torch.float32, device=dev)
     for _ in range(iters):

@@ -244,11 +244,16 @@ def server_ingest_core(m: ms.MapState, tab: IngestTables, kfb, mpb, S: Sim3, age
     feat = mpb.obs_feat.clamp(0, N - 1).long()
     link_ok = ((is_new | is_update)[:, None] & mpb.obs_valid & (obs_kf_arena >= 0)
                & ~m.kfs.bad[oka] & (m.kfs.mp_idx[oka, feat] < 0))
+    # links past a landmark's last free observation slot are dropped on both
+    # sides (a declared divergence: the reference clamps them onto the last
+    # slot, where their keyframe and feature indices add up, and keeps their
+    # forward links)
+    pa = p_arena.clamp(0, M - 1).long()
+    rank = torch.cumsum(link_ok.to(torch.int32), 1) - 1
+    link_ok = link_ok & (m.mps.obs_n[pa][:, None] + rank < m.mps.max_obs)
     val = p_arena[:, None].expand_as(link_ok)
     mp_idx2 = ms._add_at(m.kfs.mp_idx, (oka, feat), val - m.kfs.mp_idx[oka, feat], link_ok)
     m = m.replace(kfs=m.kfs.replace(mp_idx=mp_idx2))
-    rank = torch.cumsum(link_ok.to(torch.int32), 1) - 1
-    pa = p_arena.clamp(0, M - 1).long()
     mps = m.mps
     slot = (mps.obs_n[pa][:, None] + rank).clamp(0, mps.max_obs - 1).long()
     tgt_p = pa[:, None].expand_as(slot)

@@ -92,12 +92,25 @@ that path's own expected counts after it:
      against ``ba_solve``, launches held exactly; wall per LM iteration
      beside ``ba_solve``'s and the device busy share; then phase 13's merged
      slot solved again with ``Server.mesh`` set, held to the unsharded
-     solve's cost and to phase 13's ATE gates.
+     solve's cost and to phase 13's ATE gates;
+ 15. the entry points a user types, on ``cuda:0``: (a) the runner
+     in-process, ``run.main`` over 60 rendered corridor frames at 752x480
+     with the server, trimming and vicinity feedback, counted; its files
+     (KF_GBA_0.csv the server's trajectory, the checkpoint clean, the
+     cloud and scene parsed) and its printed ATE (below 0.02 span + 0.05 m,
+     for want of a JAX figure of that run) checked; (b) the deployment as
+     processes: ``deploy launch --agents 2`` (synthetic, all three
+     processes on the card) held to ``tests/test_multiprocess.py``'s gates,
+     then a server and a sequence-streaming client over 60 rendered frames
+     at 752x480, held to its second test's gates; every process's launches
+     (reported in its closing event) held to its work, and together they
+     launch every kernel the runner did.
 
 It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
-``{"kernels": [...]}`` (each kernel's launches on its path and in phase
-14 (``launches_sharded_gba``), error against
+``{"kernels": [...]}`` (each kernel's launches on its path, in phase
+14 (``launches_sharded_gba``) and in phase 15 (``launches_runner``,
+``launches_deploy``), error against
 its plain version, device time, plain time, bound and library yardstick),
 and last ``{"ok": true, "device": {...}}``.  Kernel times are the
 profiler's device time per wrapper call (``tools/kernel_timing.py``);
@@ -111,19 +124,25 @@ phase fails.  Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ccm_slam_tpu_torch import config, convert, problems
+from ccm_slam_tpu_torch import config, convert, deploy, native, problems, run
+from ccm_slam_tpu_torch.io import checkpoint
 from ccm_slam_tpu_torch.io.rendered import RenderedSequence
-from ccm_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers
+from ccm_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers, write_tum
 from ccm_slam_tpu_torch.models import map_store as ms
 from ccm_slam_tpu_torch.ops import _build, ba_kernels as bk, hamming, hamming_kernels as hk
 from ccm_slam_tpu_torch.ops import initializer, matching, orb, pnp
@@ -404,8 +423,13 @@ def counted(label, fn, want):
     hk.reset_launch_counts()
     out = fn()
     counts = {**bk.launch_counts(), **hk.launch_counts()}
-    if callable(want):
-        want = want(out)
+    hold_counts(label, counts, want(out) if callable(want) else want)
+    return out, counts
+
+
+def hold_counts(label, counts, want):
+    """Raise unless every count lies in ``want``'s range (0 where it names
+    no range)."""
     bad = {}
     for name, n in counts.items():
         w = want.get(name, 0)
@@ -415,7 +439,6 @@ def counted(label, fn, want):
     log(f"  launches, {label}: {json.dumps(counts)}  {'ok' if not bad else 'FAIL'}")
     if bad:
         raise AssertionError(f"{label}: launch counts off: {bad}")
-    return out, counts
 
 
 def agree_with_cpu(label, arr, iters):
@@ -919,12 +942,11 @@ def check_profile(stress):
 # ---------------------------------------------------------------------------
 
 
-def client_want(tr):
-    """The kernel launches of a Tracker run, from what the tracker counted:
-    each initialization's 20-iteration BA (160 camera slots: the PCG branch,
-    as in the reference), each local BA's iterations (40 camera slots: dense),
-    one hamming_top2 per brute match."""
-    s = tr.stats
+def client_want(s):
+    """The kernel launches of a Tracker run, from what the tracker counted
+    (its ``stats``): each initialization's 20-iteration BA (160 camera
+    slots: the PCG branch, as in the reference), each local BA's iterations
+    (40 camera slots: dense), one hamming_top2 per brute match."""
     init, lba, lba_it = s["init_calls"], s["local_ba_calls"], s["local_ba_iters"]
     return dict(
         normal_blocks=20 * init + lba_it,
@@ -956,7 +978,8 @@ def kf_trajectory(m):
 def check_client_loop(dev, smi):
     """Phase 11: Tracker.process_image over CLIENT_FRAMES rendered 752x480
     corridor frames (rendered on the card before the loop), counted; gated
-    on LOST, frames tracked and keyframe ATE.  Returns the counts."""
+    on LOST, frames tracked and keyframe ATE.  Returns the counts and the
+    median per-frame wall (ms)."""
     cfg = config.rendered_ci_config(factor=1.0)
     seq = RenderedSequence(world="corridor", seed=0, n_frames=200, span=(0.0, 0.22),
                            cam=cfg.camera, backend="torch", device=dev)
@@ -985,7 +1008,7 @@ def check_client_loop(dev, smi):
 
     t0 = time.perf_counter()
     reads0 = tr.stats["host_reads"]
-    tracked, counts = counted("client loop", drive, lambda _: client_want(tr))
+    tracked, counts = counted("client loop", drive, lambda _: client_want(tr.stats))
     loop_s = time.perf_counter() - t0
     if counts["hamming_top2"] < 1:
         raise AssertionError("the client loop never tracked against its reference keyframe")
@@ -1031,7 +1054,7 @@ def check_client_loop(dev, smi):
             f"{sum(e.count for e in device)} device kernels, the port's CUDA kernels "
             f"{port_kernels_ms(device):.3f} ms")
         port_kernels_ms(device, "    in it")
-    return counts
+    return counts, med
 
 
 # ---------------------------------------------------------------------------
@@ -1073,7 +1096,7 @@ def loop_want(sys_):
     slots the PCG branch's ``solve_launches(n)``, and one hamming_top2 per
     ``estimate_sim3`` attempt (its ``match_brute``), per BoW transform and per
     vocabulary training iteration (each takes its nearest words from it)."""
-    want = client_want(sys_.tracker)
+    want = client_want(sys_.tracker.stats)
     gba = solve_launches(sys_.stats["gba_iters"], pcg=True, calls=sys_.stats["gba_runs"])
     for name, n in gba.items():
         lo, hi = n if isinstance(n, tuple) else (n, n)
@@ -1235,21 +1258,34 @@ def server_want(srv, trackers):
     finders' transforms) and per ``estimate_sim3`` attempt (loop finders and
     matcher)."""
     want = {}
-
-    def add(part):
-        for name, n in part.items():
-            lo, hi = n if isinstance(n, tuple) else (n, n)
-            w = want.get(name, 0)
-            wlo, whi = w if isinstance(w, tuple) else (w, w)
-            want[name] = (wlo + lo, whi + hi)
-
     for tr in trackers:
-        add(client_want(tr))
-    for iters, C, stats in srv.stats["gba"]:
-        add(solve_launches(iters, pcg=C > ba.pcg_min_c(), stats=stats))
+        add_want(want, client_want(tr.stats))
     searches = [srv.matcher.stats] + [f.stats for f in srv.finders.values()]
-    add({"hamming_top2": srv.stats["bow_batches"] + sum(
-        s["bow_transforms"] + s["sim3_attempts"] for s in searches)})
+    work = {k: sum(s[k] for s in searches) for k in ("bow_transforms", "sim3_attempts")}
+    add_want(want, server_work_want(dict(gba=srv.stats["gba"],
+                                         bow_batches=srv.stats["bow_batches"], **work)))
+    return want
+
+
+def add_want(want, part):
+    """Add the expected counts ``part`` to ``want`` ({kernel: (lo, hi)})."""
+    for name, n in part.items():
+        lo, hi = n if isinstance(n, tuple) else (n, n)
+        w = want.get(name, 0)
+        wlo, whi = w if isinstance(w, tuple) else (w, w)
+        want[name] = (wlo + lo, whi + hi)
+
+
+def server_work_want(work):
+    """The launches a server's own work makes, from its counts (as the
+    deployment's ``run_summary`` reports them): per GBA ``solve_launches``
+    on its branch, one hamming_top2 per BoW batch, BoW transform and Sim(3)
+    attempt."""
+    want = {}
+    for iters, C, stats in work["gba"]:
+        add_want(want, solve_launches(iters, pcg=C > ba.pcg_min_c(), stats=stats))
+    add_want(want, {"hamming_top2": work["bow_batches"] + work["bow_transforms"]
+                    + work["sim3_attempts"]})
     return want
 
 
@@ -1600,6 +1636,205 @@ def check_merged_resolve(srv, last_gba, seqs, mesh, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the entry points a user types -- the runner and the deployment.
+# ---------------------------------------------------------------------------
+
+RUN_ARGV = ["--dataset", "rendered", "--seq", "corridor:0:60:0-0.08", "--factor", "1.0",
+            "--server", "--trim", "--vicinity", "6", "--progress", "20"]
+RUN_VOCAB_ITERS = 6   # the runner's vocabulary bootstrap (no --vocab)
+DEPLOY_VOCAB_ITERS = 6  # the deployment server's vocabulary (``deploy._vocab``)
+DEPLOY_TIMEOUT_S = 300
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def runner_want(state):
+    """The kernel launches of a runner call with the server, from what it
+    counted: ``server_want`` of its server and trackers, and one
+    hamming_top2 per iteration of the vocabulary bootstrap."""
+    want = server_want(state["server"], state["trackers"])
+    lo, hi = want.get("hamming_top2", (0, 0))
+    want["hamming_top2"] = (lo + RUN_VOCAB_ITERS, hi + RUN_VOCAB_ITERS)
+    return want
+
+
+def check_runner(smi, client_median_ms):
+    """Phase 15 (a): ``run.main`` in this process on cuda:0, counted; gated
+    on its exit code, its files and its printed keyframe ATE.  Returns the
+    counts."""
+    out = OUT_DIR / "run"
+    state, printed = {}, io.StringIO()
+
+    def drive():
+        with contextlib.redirect_stdout(printed):
+            return run.main(RUN_ARGV + ["--out", str(out)], state)
+
+    t0 = time.perf_counter()
+    rc, counts = counted("runner", drive, lambda _: runner_want(state))
+    run_s = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        if line.startswith("[agent") or line.startswith("agent"):
+            log(f"  | {line}")
+    srv, seq = state["server"], state["seqs"][0]
+    ts, R, t = srv.trajectory(0)
+    want = OUT_DIR / "run_want_KF_GBA_0.csv"
+    write_tum(str(want), ts, R, t, t_sc=np.asarray(state["cfg"].camera.t_sc))
+    same_traj = (out / "KF_GBA_0.csv").read_text() == want.read_text()
+    m = checkpoint.load_map(str(out / "map_0.npz"), "cuda:0")
+    structure = ms.check_structure(m)
+    ply = (out / "map_0.ply").read_text().splitlines()
+    n_ply = int(next(x for x in ply if x.startswith("element vertex")).split()[-1])
+    scene = json.loads((out / "scene_0.json").read_text())
+    ate_lines = [x for x in lines if x.startswith("agent 0: ATE RMSE (Sim3) = ")]
+    rmse = float(ate_lines[0].split("= ")[1].split()[0]) if ate_lines else float("inf")
+    gt_ts, gt_pos, _ = seq.ground_truth()
+    gt = gt_pos[np.clip(np.searchsorted(gt_ts, ts), 0, len(gt_ts) - 1)]
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    gate = 0.02 * span + 0.05
+    n_alive = int((m.kfs.valid & ~m.kfs.bad).sum())
+    ok = (rc == 0 and same_traj and structure == [] and len(ply) == n_ply + 10
+          and scene["n_keyframes"] == n_alive and rmse < gate and len(ts) >= 3)
+    log(f"  exit {rc}; KF_GBA_0.csv {len(ts)} keyframes, the server's trajectory as write_tum "
+        f"writes it {same_traj}; map_0.npz loads, check_structure {len(structure)} findings "
+        f"(0); map_0.ply {n_ply} points, scene_0.json {scene['n_keyframes']} keyframes "
+        f"({n_alive} alive); keyframe ATE {rmse:.4f} m over a {span:.3f} m span (gate "
+        f"{gate:.4f} m = 0.02 span + 0.05: no JAX figure of this run)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the runner failed its gates: {structure[:5]}")
+    walls = [w * 1e3 for w in state["frame_walls"]]
+    log(f"[times] runner, {smi}: {run_s:.1f} s for {len(walls)} frames; per-frame wall (tracking "
+        f"only, CUDA events around each frame, no sync) median {statistics.median(walls):.3f} ms, min "
+        f"{min(walls):.3f}, max {max(walls):.3f}; phase 11's median {client_median_ms:.3f} ms; "
+        f"{srv.stats['ingests']} ingests, {len(srv.stats['gba'])} GBA calls")
+    return counts
+
+
+def deploy_events(text):
+    out = []
+    for line in text.splitlines():
+        try:
+            e = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(e, dict):
+            out.append(e)
+    return out
+
+
+def deploy_launches(label, summary, done):
+    """Hold each deployment process's kernel launches (counted from 0 at its
+    start, reported in its closing event) to what its reported work implies:
+    the server's ``server_work_want`` plus its vocabulary's training
+    iterations, a sequence client's ``client_want``, a synthetic client none.
+    Returns their sum over the processes."""
+    want = server_work_want(summary["work"])
+    add_want(want, {"hamming_top2": DEPLOY_VOCAB_ITERS})
+    hold_counts(f"{label}, the server process", summary["launches"], want)
+    total = dict(summary["launches"])
+    for d in done:
+        hold_counts(f"{label}, client {d['agent']}'s process", d["launches"],
+                    client_want(d["work"]) if "work" in d else {})
+        for name, n in d["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def check_deploy_launch(smi):
+    """Phase 15 (b), first part: ``deploy launch --agents 2`` (synthetic
+    profile, the server and both clients on cuda:0), gated as
+    tests/test_multiprocess.py::test_two_agent_deployment, with each
+    process's launches held to its work.  Returns their sum."""
+    out = OUT_DIR / "mp"
+    cmd, env = deploy.module_command("launch", "--agents", 2, "--out", out, "--timeout",
+                                     DEPLOY_TIMEOUT_S - 60)
+    t0 = time.perf_counter()
+    # its own session: on a timeout the launcher and the processes it started
+    # go together
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DEPLOY_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    ev = deploy_events(stdout)
+    for e in ev:
+        log(f"  | {json.dumps(e)}")
+    summary = next((e for e in ev if e.get("event") == "run_summary"), {})
+    done = [e for e in ev if e.get("event") == "client_done"]
+    shapes, close = [], False
+    if proc.returncode == 0 and summary:
+        t = [np.loadtxt(out / f"KF_GBA_{a}.csv") for a in (0, 1)]
+        shapes = [x.shape for x in t]
+        if shapes == [(4, 8), (4, 8)]:
+            t0_, t1_ = t[0][:, 1:4], t[1][:, 1:4]
+            step = np.linalg.norm(t0_[1] - t0_[0])
+            close = bool(np.linalg.norm(t0_[2] - t1_[2]) < 0.2 * step
+                         and np.linalg.norm(t0_[3] - t1_[1]) < 0.2 * step)
+    ok = (proc.returncode == 0 and summary.get("merges", 0) >= 1
+          and summary.get("agents_share_map") is True and len(done) == 2
+          and all(d["kfs_acked"] == 4 for d in done) and shapes == [(4, 8), (4, 8)] and close)
+    log(f"  exit {proc.returncode}; merges {summary.get('merges')} (>= 1), agents share a map "
+        f"{summary.get('agents_share_map')}, keyframes acked {[d['kfs_acked'] for d in done]} "
+        f"(4 each), TUM files {shapes}, co-located keyframes within 0.2 of a corridor step "
+        f"{close}  {'ok' if ok else 'FAIL'}")
+    log(f"[times] deploy launch --agents 2 (3 processes on the card, beside the sequence "
+        f"deployment), {smi}: {wall:.1f} s of wall")
+    if not ok:
+        raise AssertionError(f"the two-agent deployment failed its gates:\n{stdout}\n"
+                             f"{stderr[-4000:]}")
+    return deploy_launches("deploy launch", summary, done)
+
+
+def check_sequence_client(smi):
+    """Phase 15 (b), second part: a server (``--profile rendered --factor
+    1.0 --vicinity 6``) and a sequence-streaming client over 60 rendered
+    corridor frames at 752x480, both on cuda:0; gated as
+    tests/test_multiprocess.py::test_sequence_streaming_client, with each
+    process's launches held to its work.  Returns their sum."""
+    port = deploy.free_port()
+    common = ["--profile", "rendered", "--factor", "1.0", "--timeout", DEPLOY_TIMEOUT_S - 60]
+    srv_cmd, env = deploy.module_command(
+        "server", "--port", port, "--agents", 1, "--out", OUT_DIR / "mp_seq", "--quiescence", 5,
+        "--vicinity", 6, *common)
+    cli_cmd, _ = deploy.module_command(
+        "client", "--agent", 0, "--connect", f"127.0.0.1:{port}", "--seq",
+        "rendered:corridor:0:60:0-0.07", "--kf-budget", 40, "--mp-budget", 2500, *common)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, start_new_session=True) for c in (srv_cmd, cli_cmd)]
+    try:
+        cli_out, _ = procs[1].communicate(timeout=DEPLOY_TIMEOUT_S)
+        srv_out, _ = procs[0].communicate(timeout=DEPLOY_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    wall = time.perf_counter() - t0
+    for e in deploy_events(srv_out) + deploy_events(cli_out):
+        log(f"  | {json.dumps(e)}")
+    done = next((e for e in deploy_events(cli_out) if e.get("event") == "client_done"), {})
+    summary = next((e for e in deploy_events(srv_out) if e.get("event") == "run_summary"), {})
+    n_kfs = summary.get("trajectories", {}).get("0", {}).get("n_kfs", 0)
+    ok = (procs[0].returncode == 0 and procs[1].returncode == 0
+          and done.get("mode") == "sequence" and done.get("frames") == 60
+          and done.get("publishes", 0) >= 3 and done.get("kfs", 0) >= 4 and n_kfs >= 4)
+    log(f"  exit server {procs[0].returncode}, client {procs[1].returncode}; client frames "
+        f"{done.get('frames')} (60), publishes {done.get('publishes')} (>= 3), keyframes "
+        f"{done.get('kfs')} (>= 4), resets {done.get('resets')}; the server's trajectory "
+        f"{n_kfs} keyframes (>= 4)  {'ok' if ok else 'FAIL'}")
+    log(f"[times] server + sequence client (2 processes on the card, 60 frames at 752x480, "
+        f"beside the two-agent deployment), {smi}: {wall:.1f} s of wall")
+    if not ok:
+        raise AssertionError(f"the sequence-streaming deployment failed its gates:\n"
+                             f"{srv_out[-4000:]}\n{cli_out[-4000:]}")
+    return deploy_launches("sequence deployment", summary, [done])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1844,7 +2079,7 @@ def main() -> int:
     # -- phase 11: the client loop at full width --------------------------------
     log("[client] Tracker.process_image over the rendered corridor at 752x480, "
         "rendered_ci_config(1.0)")
-    check_client_loop(dev, smi)
+    _, client_median_ms = check_client_loop(dev, smi)
     phase_done(11)
 
     # -- phase 12: the single-agent loop at full width ---------------------------
@@ -1883,6 +2118,30 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     phase_done(14)
 
+    # -- phase 15: the runner and the deployment through their entry points -----
+    log("[entry] python -m ccm_slam_tpu_torch.run " + " ".join(RUN_ARGV) + " (in-process "
+        "run.main on cuda:0)")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    runner_counts = check_runner(smi, client_median_ms)
+    log(f"  phase-15 (a) launches: {json.dumps(runner_counts)}")
+    log("[entry] side by side: python -m ccm_slam_tpu_torch.deploy launch --agents 2 "
+        "(synthetic), and deploy server --profile rendered --factor 1.0 --vicinity 6 + client "
+        "--seq rendered:corridor:0:60:0-0.07; every process on cuda:0")
+    native._build("native_channel")  # once, before the processes need it
+    deploy_counts = {}
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(check_deploy_launch, smi),
+                    pool.submit(check_sequence_client, smi)]:
+            for name, n in fut.result().items():
+                deploy_counts[name] = deploy_counts.get(name, 0) + n
+    # the deployment's processes went through every kernel the runner did
+    unused = [name for name, n in runner_counts.items() if n and not deploy_counts.get(name)]
+    log(f"  phase-15 (b) launches, summed over the processes: {json.dumps(deploy_counts)}; "
+        f"the runner's kernels not launched there: {unused}  {'ok' if not unused else 'FAIL'}")
+    if unused:
+        raise AssertionError(f"the deployment launched no {unused}")
+    phase_done(15)
+
     # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
     # its windows miscounted, the CUDA-event time
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
@@ -1895,8 +2154,10 @@ def main() -> int:
                                 ("schur_matvec", f"{PALLAS}:496", matvec_err)):
         kernels.append(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                             launches=prof_counts[name], max_abs_err=err, **new_times[name]))
-    for k in kernels:  # phase 14's launches beside the path's
+    for k in kernels:  # phase 14's and phase 15's launches beside the path's
         k["launches_sharded_gba"] = dist_counts.get(k["name"], 0)
+        k["launches_runner"] = runner_counts.get(k["name"], 0)
+        k["launches_deploy"] = deploy_counts.get(k["name"], 0)
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

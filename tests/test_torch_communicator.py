@@ -53,6 +53,46 @@ def assert_maps_close(ours, ref, rtol=1e-5, atol=1e-5):
         assert int(a[n]) == int(b[n]), n
 
 
+def assert_maps_close_past_full_tables(ours, ref):
+    """``assert_maps_close``, with the port's declared divergence of the
+    batched ingest allowed for (ROADMAP section 3): a link past a landmark's
+    full observation table is dropped on both sides, where JAX keeps its
+    forward link and adds it up on the table's last slot.  Exactly: each
+    forward link of JAX's that the port lacks is -1 in the port, points at
+    a landmark whose JAX table is full, and is not in that landmark's
+    reverse table in the port; each full landmark lost as many forward links
+    as JAX's exceed its table; the reverse tables are JAX's but on a full
+    landmark's last slot, where the port holds a forward link to it that
+    both maps have; everything else as ``assert_maps_close``."""
+    jidx, idx = np.asarray(ref.kfs.mp_idx), ours.kfs.mp_idx.numpy()
+    jkf, jfeat = np.asarray(ref.mps.obs_kf), np.asarray(ref.mps.obs_feat)
+    kf, feat, n = ours.mps.obs_kf.numpy(), ours.mps.obs_feat.numpy(), ours.mps.obs_n.numpy()
+    M, O = kf.shape
+    full = np.asarray(ref.mps.obs_n) == O
+    k_d, f_d = np.nonzero(idx != jidx)
+    np.testing.assert_array_equal(idx[k_d, f_d], -1, err_msg="kfs.mp_idx")
+    p_d = jidx[k_d, f_d]
+    assert (p_d >= 0).all() and full[p_d].all(), "links dropped from a table with room"
+    for k, f, p in zip(k_d, f_d, p_d):
+        assert not ((kf[p, :n[p]] == k) & (feat[p, :n[p]] == f)).any(), (k, f, p)
+    overflow = np.where(full, np.bincount(jidx[jidx >= 0], minlength=M) - O, 0)
+    np.testing.assert_array_equal(np.bincount(p_d, minlength=M), overflow,
+                                  err_msg="dropped links per landmark")
+    last = np.zeros_like(kf, bool)
+    last[:, O - 1] = full
+    np.testing.assert_array_equal(np.where(last, jkf, kf), jkf, err_msg="mps.obs_kf")
+    np.testing.assert_array_equal(np.where(last, jfeat, feat), jfeat, err_msg="mps.obs_feat")
+    for p in np.nonzero(full & ((kf[:, O - 1] != jkf[:, O - 1])
+                                | (feat[:, O - 1] != jfeat[:, O - 1])))[0]:
+        k, f = kf[p, O - 1], feat[p, O - 1]
+        assert jidx[k, f] == p and idx[k, f] == p, p
+    ours = ours.replace(kfs=ours.kfs.replace(mp_idx=torch.as_tensor(jidx)),
+                        mps=ours.mps.replace(obs_kf=torch.as_tensor(jkf),
+                                             obs_feat=torch.as_tensor(jfeat)))
+    assert_maps_close(ours, ref)
+    return len(p_d)
+
+
 def assert_msgs_close(ours, ref):
     for name, cls in (("kfs", comm.KFMsgBatch), ("mps", comm.MPMsgBatch)):
         for f in dataclasses.fields(cls):
@@ -190,6 +230,35 @@ def test_ingest_server_map_foreign_and_own_match_jax(world, client):
     alive = (m4.kfs.valid & ~m4.kfs.bad).numpy()
     np.testing.assert_array_equal(alive, np.asarray(jm4.kfs.valid & ~jm4.kfs.bad))
     assert fk == jfk and not any(alive[a] for (c, _), a in fk.items() if c == 2)
+
+
+def test_ingest_server_map_drops_links_past_a_full_table_like_the_server(world):
+    """Vicinity keyframes that see foreign landmarks more often than their 8
+    observation slots hold: a foreign agent's 13 keyframes 0.1 apart reach
+    a two-keyframe client in messages of 3, 5 and 5; the last ten all see
+    the landmarks that came with the first three.  The port drops the links
+    past a full table where JAX adds them up on its last slot (the server
+    ingest's declared divergence, held to the same rule); the first
+    message, which fills no table, compares exactly.  The messages have the
+    shapes of the test above, so JAX compiles nothing new."""
+    w, d = world
+    jm = build_agent_map(w, d, [0.0, 0.7], JSim3.identity(), kf_id_base=0, client_id=0)
+    m = port_map(jm)
+    jf = build_agent_map(w, d, [1.0 + 0.1 * i for i in range(13)], JSim3.identity(),
+                         kf_id_base=30, client_id=2)
+    jst = jcomm.ClientCommState.create(16, 1024)
+    jcs, cs = jcomm.ClientCommState.create(16, 1024), comm.ClientCommState.create(16, 1024)
+    jfk, jfm, fk, fm = {}, {}, {}, {}
+    for max_kfs in (3, 5, 5):
+        jvic, jst = jcomm.publish_client(jf, jst, 2, max_kfs=max_kfs, max_mps=300)
+        jm = jcomm.ingest_server_map(jm, jvic, 0, jfk, jfm, jcs)
+        m = comm.ingest_server_map(m, msg_to_torch(jvic), 0, fk, fm, cs)
+        if max_kfs == 3:
+            assert_maps_close(m, jm)
+    assert fk == jfk and fm == jfm and len(fk) == 13
+    assert_states_equal(cs, jcs)
+    assert assert_maps_close_past_full_tables(m, jm) > 0
+    assert jms.check_structure(jm) and ms.check_structure(m) == []
 
 
 def test_empty_raises_without_batches_like_jax():

@@ -36,7 +36,7 @@ from ccm_slam_tpu_torch.config import CameraConfig as TCameraConfig
 from ccm_slam_tpu_torch.runtime import communicator as comm
 from ccm_slam_tpu_torch.runtime.server import Server
 from ccm_slam_tpu_torch.utils.camera import Camera
-from tests.test_torch_communicator import assert_maps_close
+from tests.test_torch_communicator import assert_maps_close, assert_maps_close_past_full_tables
 from tests.test_torch_wire import msg_to_torch
 
 
@@ -104,7 +104,7 @@ class Lockstep:
         js, ts = self.js, self.ts
         assert sorted(ts.maps) == sorted(js.maps)
         for slot in js.maps:
-            assert_maps_close(ts.maps[slot], js.maps[slot])
+            assert_maps_close_past_full_tables(ts.maps[slot], js.maps[slot])
             for name in ("vectors", "valid", "map_id"):
                 np.testing.assert_allclose(getattr(ts.finders[slot].db, name).numpy(),
                                            np.asarray(getattr(js.finders[slot].db, name)),
@@ -190,7 +190,10 @@ def test_weak_acks_and_in_batch_duplicates():
 def test_growth_beyond_the_initial_arena():
     """tests/test_grow.py's stream, at this file's shapes: 29 keyframes into
     a server whose arena starts at 32 slots; it grows at 27 (and the shared
-    bank re-grids) in step."""
+    bank re-grids) in step.  The keyframes overflow landmarks' observation
+    tables: the port drops the links past them where JAX adds them up (a
+    declared divergence, allowed for by
+    ``assert_maps_close_past_full_tables``)."""
     ls = Lockstep(seed=2, xs=([0.1 * i for i in range(29)], [5.0]), kf_cap=32)
     jst = jcomm.ClientCommState.create(32, 1024)
     for _ in range(16):
@@ -201,6 +204,12 @@ def test_growth_beyond_the_initial_arena():
         jst = jcomm.apply_server_acks(jst, ls.jmaps[0], jack)
     assert ls.ts.maps[0].kfs.capacity == 64 and ls.ts.matcher.kf_capacity == 64
     assert set(ls.ts.agents[0].kf_table) == set(range(29))
+    # 29 keyframes 0.1 apart see each landmark more often than its 8 slots
+    # hold: JAX adds the links past them up, the port drops them
+    from ccm_slam_tpu.models import map_store as jms
+    from ccm_slam_tpu_torch.models import map_store as ms
+
+    assert jms.check_structure(ls.js.maps[0]) and ms.check_structure(ls.ts.maps[0]) == []
 
 
 def test_landmark_on_a_culled_reference_keyframe_is_reanchored_where_jax_keeps_it_dead():
