@@ -5,7 +5,8 @@ archives, ``Map::SaveMap``/``LoadMap``, cslam/src/Map.cpp:335-386, 414-621;
 the ``ccmslam_savemap`` service): a whole ``MapState`` is one compressed
 ``.npz`` whose keys are the JAX package's path flattening (``kfs/<field>``,
 ``mps/<field>``, ``next_kf``, ``next_mp``, ``insert_counter``), so each
-package reads the other's files.  Loading casts every array to the empty
+package reads the other's files; ``save_pytree`` writes any tree of tensors
+(a ``Vocabulary``, ...) the same way.  Loading casts every array to the empty
 arena's dtype, as the reference does.
 
 ``remap_to_client`` is the reference's load-time id policy: every loaded
@@ -27,19 +28,39 @@ from ..ops.bow import Vocabulary
 _CURSORS = ("next_kf", "next_mp", "insert_counter")
 
 
-def _flatten(m: ms.MapState) -> dict:
-    """{npz key: tensor} of every field of the map."""
+def _flatten(tree, path=()) -> dict:
+    """{npz key: leaf} of a tree of dataclasses, dicts, tuples and lists
+    (``None`` an empty subtree), keyed as the reference's path flattening:
+    field names, sequence positions and ``['key']`` for dict keys, joined
+    by '/'."""
+    if tree is None:
+        return {}
+    if dataclasses.is_dataclass(tree):
+        items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = list(enumerate(tree))
+    else:
+        return {"/".join(map(str, path)): tree}
     out = {}
-    for store in ("kfs", "mps"):
-        obj = getattr(m, store)
-        for f in dataclasses.fields(obj):
-            out[f"{store}/{f.name}"] = getattr(obj, f.name)
-    out.update({n: getattr(m, n) for n in _CURSORS})
+    for name, sub in items:
+        out.update(_flatten(sub, path + (name,)))
     return out
 
 
+def _host(leaf):
+    return leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+
+
+def save_pytree(path: str, tree) -> None:
+    """Any tree of tensors (a ``MapState``, a ``Vocabulary``, ...) as one
+    compressed ``.npz`` with the reference's keys."""
+    np.savez_compressed(path, **{k: _host(v) for k, v in _flatten(tree).items()})
+
+
 def save_map(path: str, m: ms.MapState) -> None:
-    np.savez_compressed(path, **{k: v.detach().cpu().numpy() for k, v in _flatten(m).items()})
+    save_pytree(path, m)
 
 
 def load_map(path: str, device=None) -> ms.MapState:

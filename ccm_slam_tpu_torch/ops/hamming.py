@@ -76,6 +76,14 @@ def hamming_cross(query_u8, db_u8):
     return _sign_distance(_signs(query_u8) @ _signs(db_u8).T)
 
 
+def hamming_cross_popcount(query_u8, db_u8):
+    """The dense cross distance by XOR + popcount of the packed words (no
+    product): [Q, 32] x [D, 32] uint8 -> [Q, D] int32; the golden version
+    for tests."""
+    x = _words(query_u8)[:, None, :] ^ _words(db_u8)[None, :, :]
+    return torch.sum(popcount64(x), dim=-1, dtype=torch.int32)
+
+
 def hamming_self(desc_u8):
     """Distances among each row's descriptors: [B, O, 32] -> [B, O, O] int32."""
     s = _signs(desc_u8)

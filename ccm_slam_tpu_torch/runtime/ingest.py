@@ -65,6 +65,12 @@ class IngestTables:
     max_mp_id: torch.Tensor    # 0-d int32
 
 
+def empty_tables(kf_id_space: int = 1 << 16, mp_id_space: int = 1 << 20,
+                 device=None) -> IngestTables:
+    """Tables that know no id yet (every entry -1, no id ingested)."""
+    return tables_from_dicts({}, {}, kf_id_space, mp_id_space, device)
+
+
 def tables_from_dicts(kf_table: dict, mp_table: dict, kf_id_space: int = 1 << 16,
                       mp_id_space: int = 1 << 20, device=None) -> IngestTables:
     """Device tables rebuilt from the host dicts (after merges remap arenas)."""

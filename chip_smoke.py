@@ -27,8 +27,9 @@ that path's own expected counts after it:
      ``cam_broadcast`` (F=12) also at the local-BA, initialization-BA and
      bench shapes, warm and with L2 flushed before each call, beside
      ``index_select``; ``hamming_top2`` at 1024 x 1024, 1024 x 16384,
-     1024 x 24576, 1024 x 32768 (a BoW transform against vocab32k) and
-     81,920 x 32,768 (an ingest's BoW batch against vocab32k) against the
+     1024 x 24576, 1024 x 32768 (a BoW transform against vocab32k),
+     81,920 x 32,768 (an ingest's BoW batch against vocab32k) and 8,192 x
+     32,768 (a training block of the vocabulary trainer) against the
      1-bit MMA rate measured in phase 1; then the solve's wall
      and device time;
   5. ``hamming_top2`` against its plain version: 1024 x 16384 and 1024 x
@@ -36,7 +37,8 @@ that path's own expected counts after it:
      queries, a single valid target, ties inside one 8-target MMA tile,
      across tiles and across the kernel's target slices, all targets equal,
      the vocabulary bootstrap's 163,840 x 1,024, a BoW transform's 1,024 x
-     32,768 and an ingest's BoW batch, (80 x 1,024) x 32,768 -- equal
+     32,768, an ingest's BoW batch, (80 x 1,024) x 32,768, and a training
+     block, 8,192 x 32,768 with every query and word valid -- equal
      outputs, and bit-identical on a second run;
   6. the client bootstrap at 752x480: rendered corridor frames (EuRoC
      intrinsics and radtan) -> ``orb.extract`` -> ``build_frame`` ->
@@ -104,13 +106,22 @@ that path's own expected counts after it:
      then a server and a sequence-streaming client over 60 rendered frames
      at 752x480, held to its second test's gates; every process's launches
      (reported in its closing event) held to its work, and together they
-     launch every kernel the runner did.
+     launch every kernel the runner did;
+ 16. the vocabulary trainer: ``train_vocab.main`` in process on cuda:0 at
+     the reference's settings (6 sequences x 48 rendered frames at
+     752x480, 600 features each, 32,768 words x 6 iterations) into a
+     temporary file, its ``hamming_top2`` launches held to 6 per 8,192
+     descriptors; then ``tests/test_vocab_recall.py``'s protocol and gates
+     (same-place recall, cross-world margin, distinct words) on the
+     held-out seeds 10 and 11 for the trained codebook and the checked-in
+     vocab32k, one ``hamming_top2`` per frame and codebook; walls of
+     collection and training by CUDA events.
 
 It prints one line per step with each phase's wall time, the card's name and
 power limit as ``nvidia-smi`` reports them, on the line before the last
 ``{"kernels": [...]}`` (each kernel's launches on its path, in phase
-14 (``launches_sharded_gba``) and in phase 15 (``launches_runner``,
-``launches_deploy``), error against
+14 (``launches_sharded_gba``), in phase 15 (``launches_runner``,
+``launches_deploy``) and in phase 16 (``launches_train_vocab``), error against
 its plain version, device time, plain time, bound and library yardstick),
 and last ``{"ok": true, "device": {...}}``.  Kernel times are the
 profiler's device time per wrapper call (``tools/kernel_timing.py``);
@@ -132,6 +143,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -139,7 +151,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ccm_slam_tpu_torch import config, convert, deploy, native, problems, run
+from ccm_slam_tpu_torch import config, convert, deploy, native, problems, run, train_vocab
 from ccm_slam_tpu_torch.io import checkpoint
 from ccm_slam_tpu_torch.io.rendered import RenderedSequence
 from ccm_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers, write_tum
@@ -517,15 +529,17 @@ def top2_cases(dev):
     feature slots against 1,024 words, the features of three keyframes
     valid (98% of the queries invalid), every word valid and a copy of a
     valid feature, two words equal; a keyframe's BoW transform against the
-    32,768 words of vocab32k, every word valid; and an ingest's BoW batch
-    against them (``ingest_top2_inputs``, phase 13)."""
+    32,768 words of vocab32k, every word valid; a training block of the
+    vocabulary trainer (phase 16): 8,192 descriptors against 32,768 words,
+    all valid; and an ingest's BoW batch against vocab32k's words
+    (``ingest_top2_inputs``, phase 13)."""
     cases = {}
     for i, (name, Q, Tn) in enumerate((
             ("1024x16384", 1024, 16384), ("1024x1024", 1024, 1024),
             ("ragged 100x300", 100, 300), ("30 invalid queries", 128, 256),
             ("one valid target", 64, 500), ("ties at tile and slice edges", 1000, 3001),
             ("all targets equal", 96, 1000), ("bootstrap 163840x1024", 160 * 1024, 1024),
-            ("vocab32k 1024x32768", 1024, 32768))):
+            ("vocab32k 1024x32768", 1024, 32768), ("trainer 8192x32768", 8192, 32768))):
         q, qv, t, tv = top2_inputs(Q, Tn, torch.device("cpu"), seed=5 + i)
         if name.startswith("bootstrap"):
             qv = (torch.arange(Q) < 3 * 1024) & (torch.arange(Q) % 1024 < 1000)
@@ -549,6 +563,9 @@ def top2_cases(dev):
         if name.startswith("all"):
             t[:] = t[0]
         if name.startswith("vocab"):  # a BoW transform: every word valid
+            tv[:] = True
+        if name.startswith("trainer"):  # a training block: every descriptor and word valid
+            qv[:] = True
             tv[:] = True
         cases[name] = tuple(x.to(dev) for x in (q, qv, t, tv))
     cases["ingest 80x1024x32768"] = ingest_top2_inputs(dev)
@@ -1835,6 +1852,132 @@ def check_sequence_client(smi):
     return deploy_launches("sequence deployment", summary, [done])
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the vocabulary trainer at full width.
+# ---------------------------------------------------------------------------
+
+TRAIN_BLOCK = 8192           # bow.train_vocabulary_large: descriptors per nearest-word call
+RECALL_SEEDS = (10, 11)      # tests/test_vocab_recall.py: world seeds the trainer never saw
+RECALL_FRAMES = 48
+RECALL_FEATURES = 800
+RECALL_FACTOR = 0.5
+
+
+def train_vocab_want(state):
+    """One hamming_top2 per training iteration per block of TRAIN_BLOCK
+    descriptors (of those left after ``subsample``)."""
+    return {"hamming_top2": train_vocab.ITERS * -(-state["n_train"] // TRAIN_BLOCK)}
+
+
+def recall_figures(vecs):
+    """tests/test_vocab_recall.py's figures from BoW vectors {(world, seed):
+    [frames, W]}, the even frames a database and the odd ones queries:
+    (same-place hits, queries, the cross-world margins)."""
+    keys = list(vecs)
+    scores = {(a, b): bow.l1_score(vecs[a][1::2][:, None], vecs[b][0::2][None]).cpu().numpy()
+              for a in keys for b in keys}
+    hits = total = 0
+    margins = []
+    for a in keys:
+        own = scores[(a, a)]
+        for j, row in enumerate(own):
+            hits += int(np.argmax(row)) in (j, j + 1)  # the even frames flanking query j
+            total += 1
+        for b in keys:
+            if b != a:
+                for j, row in enumerate(scores[(a, b)]):
+                    own_hit = max(own[j, j], own[j, min(j + 1, own.shape[1] - 1)])
+                    margins.append(own_hit - row.max())
+    return hits, total, np.array(margins)
+
+
+def check_recall(label, vocab, feats):
+    """Every held-out frame through ``bow.transform`` (one hamming_top2
+    each), then tests/test_vocab_recall.py's three gates: same-place recall
+    >= 0.9 over >= 20 queries, a positive cross-world margin in >= 90% of
+    cases with median > 0.01, more than 30,000 distinct words.  Logs the
+    figures; returns whether every gate held."""
+    vecs = {key: torch.stack([bow.transform(vocab, f.desc, f.valid)[0] for f in fs])
+            for key, fs in feats.items()}
+    hits, total, margins = recall_figures(vecs)
+    distinct = int(torch.unique(vocab.words, dim=0).shape[0])
+    positive, median = float((margins > 0).mean()), float(np.median(margins))
+    ok = (tuple(vocab.words.shape) == (32768, 32) and total >= 20 and hits / total >= 0.9
+          and positive >= 0.9 and median > 0.01 and distinct > 30000)
+    log(f"  {label}: same-place recall {hits}/{total} = {hits / total:.4f} (>= 0.9 over >= 20); "
+        f"cross-world margin > 0 in {positive:.4f} of {len(margins)} (>= 0.9), median "
+        f"{median:.6f} (> 0.01); {distinct} distinct words (> 30000)  {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_train_vocab(dev, smi, block_ms):
+    """Phase 16: ``train_vocab.main`` in this process on cuda:0 at the
+    reference's settings, into a temporary file, counted; then
+    tests/test_vocab_recall.py's protocol and gates on the held-out seeds,
+    for the trained codebook and the port's checked-in vocab32k on the same
+    frames, counted (one hamming_top2 per frame and codebook).  ``block_ms``
+    is phase 4's device time of one training block.  Returns the two
+    parts' counts summed."""
+    state, printed = {}, io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "vocab32k.npz"
+
+        def drive():
+            with contextlib.redirect_stdout(printed):
+                return train_vocab.main(["--out", out], state)
+
+        t0 = time.perf_counter()
+        rc, counts = counted("train_vocab.main", drive, lambda _: train_vocab_want(state))
+        main_s = time.perf_counter() - t0
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        trained = bow.load_vocabulary(str(out), dev)
+        size = out.stat().st_size
+    n, n_train = state["n_descs"], state["n_train"]
+    same = (torch.equal(trained.words, state["vocab"].words)
+            and torch.equal(trained.idf, state["vocab"].idf))
+    ok = (rc == 0 and same and n_train == min(n, train_vocab.LIMIT) > 0
+          and trained.n_words == train_vocab.N_WORDS)
+    n_seq = len(train_vocab.WORLDS) * len(train_vocab.SEEDS)
+    cam = config.scaled_camera(factor=train_vocab.FACTOR)
+    log(f"  exit {rc}; {n} descriptors from {n_seq} sequences x {train_vocab.N_PER_SEQ} frames "
+        f"({cam.width}x{cam.height}, {train_vocab.N_FEAT} features), {n_train} trained on; "
+        f"the saved file "
+        f"({size} bytes) reads back as the trained codebook {same}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the vocabulary trainer failed its checks")
+    n_top2 = counts["hamming_top2"]
+    log(f"[times] train_vocab, {smi}: collection {state['collect_s']:.3f} s (raycast and "
+        f"orb.extract on the card, {n_seq * train_vocab.N_PER_SEQ} frames), training "
+        f"{state['train_s']:.3f} s ({train_vocab.ITERS} iterations, {n_top2} hamming_top2 "
+        f"launches: about {n_top2 * block_ms:.3f} ms of device time at phase 4's "
+        f"{block_ms:.4f} ms a block), main {main_s:.3f} s of wall (CUDA events with a sync at "
+        f"each end for collection and training)")
+
+    t0 = time.perf_counter()
+    feats = {(world, seed): train_vocab.sequence_features(
+        world, seed, RECALL_FRAMES, RECALL_FEATURES, RECALL_FACTOR, dev)
+        for seed in RECALL_SEEDS for world in ("corridor", "loop")}
+    torch.cuda.synchronize()
+    n_frames = sum(len(f) for f in feats.values())
+    cam = config.scaled_camera(factor=RECALL_FACTOR)
+    log(f"  held-out frames: seeds {RECALL_SEEDS}, corridor and loop, {n_frames} frames at "
+        f"{cam.width}x{cam.height}, {RECALL_FEATURES} features, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    books = {"trained": trained, "checked-in vocab32k": bow.load_vocabulary(None, dev)}
+    t0 = time.perf_counter()
+    passed, recall = counted(
+        "recall transforms", lambda: {name: check_recall(name, v, feats)
+                                      for name, v in books.items()},
+        {"hamming_top2": len(books) * n_frames})
+    log(f"[times] recall, {smi}: {time.perf_counter() - t0:.1f} s for {len(books)} codebooks x "
+        f"{n_frames} frames")
+    failed = [name for name, ok in passed.items() if not ok]
+    if failed:
+        raise AssertionError(f"{failed}: failed tests/test_vocab_recall.py's gates")
+    return {name: counts.get(name, 0) + recall.get(name, 0) for name in counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1996,8 +2139,7 @@ def main() -> int:
     new_times = stress_timings(stress, rng)
     log(f"[times] hamming_top2 (relocalization against phase 7's arena, 24,576-slot arenas, "
         f"keyframe pairs, a keyframe's BoW transform and an ingest's BoW batch against "
-        f"vocab32k: every word valid); "
-        f"{smi}")
+        f"vocab32k: every word valid; a training block of the vocabulary trainer); {smi}")
     top2_times = {f"{Q}x{Tn}": top2_timing(hk, top2_inputs(Q, Tn, dev), rate, f"{Q} x {Tn}")
                   for Q, Tn in ((1024, 16384), (1024, 24576), (1024, 1024))}
     q, qv, t, tv = top2_inputs(1024, 32768, dev)
@@ -2005,6 +2147,11 @@ def main() -> int:
                                            "1024 x 32768 (vocab32k)")
     top2_times["81920x32768"] = top2_timing(
         hk, ingest_top2_inputs(dev), rate, "(80 x 1024) x 32768 (an ingest's BoW batch)",
+        plain=lambda *a: top2_plain_rows(hk, *a))
+    q, qv, t, tv = top2_inputs(TRAIN_BLOCK, 32768, dev)
+    top2_times["8192x32768"] = top2_timing(
+        hk, (q, torch.ones_like(qv), t, torch.ones_like(tv)), rate,
+        f"{TRAIN_BLOCK} x 32768 (a training block of the vocabulary trainer, all valid)",
         plain=lambda *a: top2_plain_rows(hk, *a))
     walls = time_solve(bench, 20, 5)
     wall = statistics.median(walls)
@@ -2142,6 +2289,17 @@ def main() -> int:
         raise AssertionError(f"the deployment launched no {unused}")
     phase_done(15)
 
+    # -- phase 16: the vocabulary trainer at full width ---------------------------
+    log(f"[vocab] python -m ccm_slam_tpu_torch.train_vocab --out <temporary file> (in-process "
+        f"train_vocab.main on cuda:0: {len(train_vocab.WORLDS) * len(train_vocab.SEEDS)} "
+        f"sequences x {train_vocab.N_PER_SEQ} frames at 752x480, {train_vocab.N_FEAT} "
+        f"features, {train_vocab.N_WORDS} words x {train_vocab.ITERS} iterations), then "
+        f"tests/test_vocab_recall.py's gates on seeds {RECALL_SEEDS}")
+    vocab_counts = check_train_vocab(dev, smi, top2_times["8192x32768"]["ms"])
+    log(f"  phase-16 launches (the trainer's and the recall transforms'): "
+        f"{json.dumps(vocab_counts)}")
+    phase_done(16)
+
     # ``ms_by`` says whether ``ms`` is the profiler's device time or, where
     # its windows miscounted, the CUDA-event time
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
@@ -2154,10 +2312,11 @@ def main() -> int:
                                 ("schur_matvec", f"{PALLAS}:496", matvec_err)):
         kernels.append(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                             launches=prof_counts[name], max_abs_err=err, **new_times[name]))
-    for k in kernels:  # phase 14's and phase 15's launches beside the path's
+    for k in kernels:  # phase 14's, 15's and 16's launches beside the path's
         k["launches_sharded_gba"] = dist_counts.get(k["name"], 0)
         k["launches_runner"] = runner_counts.get(k["name"], 0)
         k["launches_deploy"] = deploy_counts.get(k["name"], 0)
+        k["launches_train_vocab"] = vocab_counts.get(k["name"], 0)
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -26,6 +26,7 @@ from ccm_slam_tpu.config import CameraConfig, CapacityConfig, PlaceRecConfig, Sy
 from ccm_slam_tpu.io.synthetic import N_FEAT, build_agent_map, make_world
 from ccm_slam_tpu.ops import bow as jbow
 from ccm_slam_tpu.runtime import communicator as jcomm
+from ccm_slam_tpu.runtime import ingest as jing
 from ccm_slam_tpu.runtime.server import Server as JServer
 from ccm_slam_tpu.utils.camera import Camera as JCamera
 from ccm_slam_tpu.utils.lie import SE3 as JSE3
@@ -34,6 +35,7 @@ from ccm_slam_tpu.utils.lie import so3_exp
 from ccm_slam_tpu_torch import convert
 from ccm_slam_tpu_torch.config import CameraConfig as TCameraConfig
 from ccm_slam_tpu_torch.runtime import communicator as comm
+from ccm_slam_tpu_torch.runtime import ingest as ing
 from ccm_slam_tpu_torch.runtime.server import Server
 from ccm_slam_tpu_torch.utils.camera import Camera
 from tests.test_torch_communicator import assert_maps_close, assert_maps_close_past_full_tables
@@ -130,6 +132,16 @@ class Lockstep:
                     x, y = getattr(pend, f.name).numpy(), np.asarray(getattr(jpend, f.name))
                     np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5, err_msg=f.name)
         assert ts.gba_progress == js.gba_progress and ts.gba_dirty == js.gba_dirty
+
+
+def test_empty_tables_match_jax():
+    for spaces in ((), (64, 1000)):
+        ours, ref = ing.empty_tables(*spaces, device="cpu"), jing.empty_tables(*spaces)
+        for f in dataclasses.fields(ours):
+            a, b = getattr(ours, f.name).numpy(), np.asarray(getattr(ref, f.name))
+            assert a.dtype == b.dtype == np.int32 and a.shape == b.shape, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert ing.empty_tables(device="cpu").kf_id2arena.shape == (1 << 16,)
 
 
 def test_out_of_order_predecessors_pending_then_resolved():

@@ -131,6 +131,29 @@ def test_each_package_reads_the_others_map(tmp_path):
         str(tmp_path / "wide.npz"), "cpu")), fields, "cast")
 
 
+def test_save_pytree_matches_jax(tmp_path):
+    """One map, a vocabulary and a tree of dicts and tuples: the same keys
+    and arrays as the JAX package's ``save_pytree``."""
+    fields = map_fields()
+    rs = np.random.RandomState(6)
+    words, idf = rs.randint(0, 256, (8, 32)).astype(np.uint8), rs.rand(8).astype(np.float32)
+    a, b = rs.rand(3, 2).astype(np.float32), np.arange(5, dtype=np.int32)
+    cases = [(convert.map_state_from_numpy(fields, "cpu"), jax_map(fields)),
+             (bow.Vocabulary(words=torch.as_tensor(words), idf=torch.as_tensor(idf)),
+              jbow.Vocabulary(words=jnp.asarray(words), idf=jnp.asarray(idf))),
+             ({"b": (torch.as_tensor(a), None, [torch.as_tensor(b)]), "a": torch.tensor(7, dtype=torch.int32)},
+              {"b": (jnp.asarray(a), None, [jnp.asarray(b)]), "a": jnp.int32(7)})]
+    for i, (ours, ref) in enumerate(cases):
+        checkpoint.save_pytree(str(tmp_path / f"port{i}.npz"), ours)
+        jckpt.save_pytree(str(tmp_path / f"jax{i}.npz"), ref)
+        x, y = np.load(tmp_path / f"port{i}.npz"), np.load(tmp_path / f"jax{i}.npz")
+        assert sorted(x.keys()) == sorted(y.keys()), i
+        for k in y.keys():
+            assert x[k].dtype == y[k].dtype and x[k].shape == y[k].shape, (i, k)
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    assert sorted(np.load(tmp_path / "jax2.npz").keys()) == ["['a']", "['b']/0", "['b']/2/0"]
+
+
 def test_remap_to_client_matches_jax():
     fields = map_fields()
     ours = checkpoint.remap_to_client(convert.map_state_from_numpy(fields, "cpu"), client_id=3)

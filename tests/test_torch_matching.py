@@ -69,6 +69,18 @@ def test_hamming_cross_exact():
                                 T(np.full((1, 32), 255, np.uint8)))[0, 0]) == 256
 
 
+def test_hamming_cross_popcount_matches_jax_and_the_product():
+    rng = np.random.default_rng(2)
+    q, d = rand_desc(rng, 50), rand_desc(rng, 70)
+    q[0], q[1], d[0], d[1] = 0, 255, 255, q[2]
+    ref = np.asarray(jax.jit(jh.hamming_cross_popcount)(J(q), J(d)))
+    ours = th.hamming_cross_popcount(T(q), T(d))
+    assert ours.dtype == torch.int32 and ours.shape == (50, 70)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    assert torch.equal(ours, th.hamming_cross(T(q), T(d)))
+    assert ours[0, 0] == 256 and ours[1, 0] == 0 and ours[2, 1] == 0
+
+
 def test_best_match_and_mutual_with_ties():
     rng = np.random.default_rng(2)
     dist = rng.integers(0, 6, (40, 50)).astype(np.int32)  # many ties
