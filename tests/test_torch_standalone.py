@@ -8,6 +8,8 @@ keyframes, ``check_structure`` clean, keyframe ATE < 0.35 m after the GBA
 (and < 0.25 m, the file's drift bound).  The JAX system is not re-run here;
 its own test drives it."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,18 @@ from tests.test_standalone_loop import (_loop_cfg, circuit_trajectory, make_circ
 
 @pytest.fixture(scope="module")
 def circuit():
+    # The suite's longest module: beside the workers' even shares of the cores
+    # (conftest.py) it also takes the cores that are left over.
+    found = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(found + max(0, len(os.sched_getaffinity(0)) - found * workers))
+    try:
+        return run_circuit()
+    finally:
+        torch.set_num_threads(found)
+
+
+def run_circuit():
     cfg = convert.system_config_from(_loop_cfg(4))
     jcam = JCamera.from_config(JCameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0))
     cam = Camera.from_config(CameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0), "cpu")
